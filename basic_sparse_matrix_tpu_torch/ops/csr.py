@@ -252,6 +252,16 @@ class CSR:
         return CSR.from_coo_arrays(self.dims, rows, indices, values,
                                    device=self.device)
 
+    def transpose(self) -> "CSR":
+        """The transposed matrix, computed on this matrix's device."""
+        from .transpose import transpose as _transpose
+
+        return _transpose(self)
+
+    @property
+    def T(self) -> "CSR":
+        return self.transpose()
+
     # ------------------------------------------------------------------ #
     def __matmul__(self, other):
         """``A @ B`` for a dense right-hand side: a vector goes to ``spmv``,

@@ -2,7 +2,8 @@
 
 The kernels live in ``basic_sparse_matrix_tpu_torch/csrc/*.cu`` behind a
 plain C interface. At first use, :func:`load` compiles them with ``nvcc``
-for Hopper (``sm_90a``) into one shared library under
+for Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, links the objects into one shared library under
 ``basic_sparse_matrix_tpu_torch/_build/`` (listed in ``.gitignore``) and
 loads it with ``ctypes``. The library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt and a current build is
@@ -28,10 +29,10 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spmm_bsr.cu", "spmm_stream.cu")
+SOURCES = ("spmm_bsr.cu", "spmm_stream.cu", "runs_read.cu", "addback.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -52,6 +53,10 @@ _SIGNATURES = {
     # ii, kk, vv, B, C, n_rt, n_kt, cellmax, tile_m, tile_k, rows, N, ldb,
     # ldc, cw, vec, stream
     "bsm_spmm_stream": [_P] * 5 + [_I] * 7 + [_LL, _LL, _I, _I, _P],
+    # lvals, n, stf, crq, l_pad, out, stream
+    "bsm_runs_read": [_P, _LL, _P, _I, _I, _P, _P],
+    # lvals, n, rows, starts, nslots, len, stream
+    "bsm_addback": [_P, _LL, _P, _P, _I, _I, _P],
 }
 
 
@@ -73,21 +78,40 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libbsm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise on the first that fails, else
+    return their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _build(out: Path) -> None:
     global BUILD_SECONDS, BUILD_LOG
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                         str(CSRC / name)]
+                        for name, obj in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = log
 
 
 def load() -> ctypes.CDLL:

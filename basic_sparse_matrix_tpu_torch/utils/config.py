@@ -13,10 +13,21 @@ full float32. PyTorch may run float32 matmuls in TF32 on the GPU when
 sets that flag to False explicitly (and cuDNN's likewise) around each dense
 product, and restores the caller's setting afterwards.
 
+The direct solver reads ``ordering``, ``supernodal_relax``,
+``supernodal_gather``, ``supernodal_scatter``, the ``banded_*`` dispatch
+fields (the banded tier itself is not ported: where it would be picked,
+``DirectSolver`` raises) and ``dense_cholesky_max_n`` /
+``dense_cholesky_min_density`` (``solve_auto``), with the JAX package's
+meanings; ``supernodal_gather="kernel"`` forces the K3 run reads (the JAX
+package maps it to element reads).
+
 Fields the port accepts but does not act on, because they select between
 formulations of one function that only mattered to XLA on the TPU:
 ``ell_gather_bf16``, ``ell_stream_unroll``, ``bsr_block_rows``,
-``bsr_block_cols``, ``rhs_tile``. The solver fields wait for their modules.
+``bsr_block_cols``, ``rhs_tile``, and ``supernodal_groups_per_program``
+(it bounds the size of XLA programs; PyTorch runs eagerly). The JAX
+package reads ``solve_dtype`` nowhere; ``merge_numeric`` and
+``spgemm_numeric`` wait for their modules.
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes (unaligned rows, columns and RHS
 widths, thin and fat BSR tiles, both vector widths and several column
-slices of the streaming kernel).
+slices of the streaming kernel; unaligned run starts, dead slots, runs past
+the end and overlapping add-back spans for the supernodal kernels).
 
 These need a CUDA device and nvcc; without a device every test skips. On a
 GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
 --noconftest`` (``tests/conftest.py`` sets up jax, which these tests do not
 use).
 Tolerance: float32 summed in another order, ``rtol=1e-4`` and ``atol=1e-4``
-times the largest reference magnitude.
+times the largest reference magnitude. The run reads (K3) copy values and
+must match exactly.
 """
 
 import dataclasses
@@ -18,6 +20,9 @@ import pytest
 import torch
 
 from basic_sparse_matrix_tpu_torch import CSR, mul_dense
+from basic_sparse_matrix_tpu_torch.ops.pallas import addback_resident as k4
+from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback as k5
+from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read as k3
 from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
 from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
 from basic_sparse_matrix_tpu_torch.utils import config as cfgmod
@@ -174,3 +179,160 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         k2.spmm_stream(plan, torch.zeros((128, 8), dtype=torch.float16,
                                          device=cuda))
+
+
+@pytest.mark.parametrize("n,crq,l_pad", [
+    (1000, 300, 37),       # odd run length, unaligned starts
+    (5000, 1024, 128),
+    (3000, 77, 2048),      # runs longer than most of lvals
+    (100000, 4096, 512),
+    (10, 9, 1),
+])
+def test_runs_read_kernel_matches_plain(cuda, n, crq, l_pad):
+    rng = np.random.default_rng(n + crq)
+    lv = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                         device=cuda)
+    stf = rng.integers(0, n, crq).astype(np.int32)
+    stf[::5] = -1                       # dead slots
+    stf[1::7] = n - 1                   # runs past the end read zeros
+    stf = torch.as_tensor(stf, device=cuda)
+    before = k3.LAUNCHES
+    out = k3.runs_read(lv, stf, l_pad)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == before + 1
+    assert torch.equal(out, k3.runs_read_reference(lv, stf, l_pad))
+
+
+def _spans(rng, nslots, length, n):
+    """Rows with a random live prefix and a zero tail, at random (often
+    overlapping) starts; a quarter of the slots dead."""
+    rows = np.zeros((nslots, length), np.float32)
+    for c in range(nslots):
+        ln = int(rng.integers(1, length + 1))
+        rows[c, :ln] = rng.standard_normal(ln)
+    starts = rng.integers(0, n, nslots).astype(np.int32)
+    starts[::4] = -1
+    return rows, starts
+
+
+@pytest.mark.parametrize("n,nslots,length", [
+    (3000, 16, 256), (20000, 4096, 512), (5000, 333, 2048), (64, 50, 100),
+])
+def test_addback_resident_kernel_matches_plain(cuda, n, nslots, length):
+    rng = np.random.default_rng(nslots)
+    rows, starts = _spans(rng, nslots, length, n)
+    lv0 = rng.standard_normal(n).astype(np.float32)
+    args = (torch.as_tensor(rows, device=cuda),
+            torch.as_tensor(starts, device=cuda))
+    out = torch.as_tensor(lv0, device=cuda)
+    before = k4.LAUNCHES
+    k4.addback_resident(out, *args)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    ref = k4.addback_resident_reference(torch.as_tensor(lv0, device=cuda),
+                                        *args)
+    _close(out, ref)
+
+
+def test_addback_overlapping_spans_lose_no_update(cuda):
+    """4096 slots add 1.0 over the same 2048-element span: every element
+    must end at exactly 4096 (a read-modify-write without atomics loses
+    updates)."""
+    nslots, length = 4096, 2048
+    lv = torch.zeros(length + 10, device=cuda)
+    rows = torch.ones((nslots, length), device=cuda)
+    starts = torch.full((nslots,), 5, dtype=torch.int32, device=cuda)
+    k4.addback_resident(lv, rows, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(lv[5:5 + length],
+                       torch.full((length,), float(nslots), device=cuda))
+    assert float(lv[:5].abs().sum()) == 0 and float(lv[-5:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("st,wt,col_len,n", [
+    (1, 64, 2048, 50000), (64, 128, 2048, 9000), (3, 5, 1024, 700),
+])
+def test_panel_addback_kernel_matches_plain(cuda, st, wt, col_len, n):
+    rng = np.random.default_rng(st * wt)
+    psh = np.zeros((st, wt, col_len), np.float32)
+    for s_ in range(st):
+        for w in range(wt):
+            ln = int(rng.integers(1, max(col_len - 1024, 1) + 1))
+            psh[s_, w, :ln] = rng.standard_normal(ln)
+    tcp = rng.integers(0, n, (st, wt)).astype(np.int32)
+    twd = rng.integers(0, wt + 1, st).astype(np.int32)
+    lv0 = rng.standard_normal(n).astype(np.float32)
+    args = [torch.as_tensor(x, device=cuda) for x in (psh, tcp, twd)]
+    out = torch.as_tensor(lv0, device=cuda)
+    before = k5.LAUNCHES
+    k5.panel_addback(out, *args)
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES == before + 1
+    ref = k5.panel_addback_reference(torch.as_tensor(lv0, device=cuda),
+                                     *args)
+    _close(out, ref)
+
+
+def test_supernodal_kernels_reject_what_they_do_not_take(cuda):
+    lv = torch.zeros(100, device=cuda)
+    with pytest.raises(TypeError):
+        k3.runs_read(lv, torch.zeros(4, dtype=torch.int64, device=cuda), 8)
+    with pytest.raises(TypeError):
+        k4.addback_resident(lv.double(), torch.zeros((2, 8), device=cuda),
+                            torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        k4.addback_resident(lv, torch.zeros((2, 8), device=cuda),
+                            torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        k5.panel_addback(lv, torch.zeros((2, 3, 8), device=cuda),
+                         torch.zeros((2, 4), dtype=torch.int32, device=cuda),
+                         torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+def _lap3(k):
+    n = k ** 3
+    idx = np.arange(n).reshape(k, k, k)
+    r, c, v = [idx.ravel()], [idx.ravel()], [np.full(n, 6.0)]
+    for ax in range(3):
+        a = np.take(idx, range(k - 1), axis=ax).ravel()
+        b = np.take(idx, range(1, k), axis=ax).ravel()
+        r += [a, b]
+        c += [b, a]
+        v += [np.full(a.size, -1.0)] * 2
+    return (n, np.concatenate(r), np.concatenate(c),
+            np.concatenate(v).astype(np.float32))
+
+
+@pytest.mark.parametrize("gather,scatter", [
+    ("kernel", "auto"), ("kernel", "vmem"), ("kernel", "pallas"),
+    ("kernel", "delta"), ("element", "element"), ("window", "vmem"),
+])
+def test_supernodal_factor_on_card_matches_cpu(cuda, gather, scatter):
+    """The factor of an ND-ordered 10³ Laplacian on the card (kernels)
+    equals the one on the CPU (plain versions)."""
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops import reorder
+
+    n, r, c, v = _lap3(10)
+    old = cfgmod.get_config()
+    cfgmod.set_config(dataclasses.replace(
+        old, supernodal_gather=gather, supernodal_scatter=scatter))
+    try:
+        lv = {}
+        for dev in ("cpu", cuda):
+            a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+            a = reorder.permute_symmetric(a, reorder.nd_permutation(a))
+            sched = sn.analyze_supernodal(a, relax=8)
+            before = (k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES)
+            lv[str(dev)] = sn.factorize_supernodal(sched, a.values)
+            got = (k3.LAUNCHES - before[0], k4.LAUNCHES - before[1],
+                   k5.LAUNCHES - before[2])
+        torch.cuda.synchronize()
+    finally:
+        cfgmod.set_config(old)
+    modes = {sn._group_delta(sched, gi, scatter)
+             for gi in range(sched.n_groups)}
+    assert (got[0] > 0) == (gather in ("kernel", "auto"))
+    assert (got[1] > 0) == ("vmem" in modes)
+    assert (got[2] > 0) == ("pallas" in modes)
+    _close(lv[str(cuda)], lv["cpu"].to(cuda))
