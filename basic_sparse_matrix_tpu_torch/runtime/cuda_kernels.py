@@ -47,9 +47,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # blocks, brow_ptr, block_cols, B, C, n_block_rows, rows, K, N, bm, bk,
-    # ldb, ldc, stream
-    "bsm_spmm_bsr": [_P] * 5 + [_I] * 6 + [_LL, _LL, _P],
+    # blocks, live_ptr, live_idx, block_cols, B, C, n_block_rows, rows, K,
+    # N, bm, bk, ldb, ldc, passes, stream
+    "bsm_spmm_bsr": [_P] * 6 + [_I] * 6 + [_LL, _LL, _I, _P],
+    # bm, passes, out[7]
+    "bsm_spmm_bsr_info": [_I, _I, _P],
     # ii, kk, vv, B, C, n_rt, n_kt, cellmax, tile_m, tile_k, rows, N, ldb,
     # ldc, cw, vec, stream
     "bsm_spmm_stream": [_P] * 5 + [_I] * 7 + [_LL, _LL, _I, _I, _P],

@@ -14,7 +14,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    (add-back) kernels from ``basic_sparse_matrix_tpu_torch/csrc`` with
    nvcc, one process per source, timed; the ptxas register/spill lines.
 3. Kernel vs plain: each kernel and its plain PyTorch version on the card
-   at the main path's shapes: max abs/rel error and CUDA-event times.
+   at the main path's shapes: max abs/rel error and CUDA-event times. K1
+   also at the other two ``pick_tiles`` shapes, (256, 512) and (8, 128),
+   on operands built straight through ``make_bsr`` (each > 100 MB of
+   blocks, B over the 50 MB L2, N = 512), with TFLOP/s over live and over
+   all blocks, its launch configuration (registers, shared memory, spill
+   bytes, blocks per SM) and, at each shape, the first rows of its
+   HIGHEST output against a float64 product (``max|err| <= 1e-5 ·
+   max|ref|``).
 4. Main path: ``mul_dense`` on three matrices, one per rung of the
    ``spmm_auto`` ladder, each checked against the plain gather/segment sum
    on the card (in row chunks):
@@ -129,6 +136,73 @@ def hypersparse_matrix(rng, dev, gen):
     a = CSR.from_coo_arrays((n, n), rows, cols, vals, device=dev)
     b = torch.randn((n, 512), generator=gen, device=dev)
     return a, b
+
+
+def random_bsr(rng, dev, gen, n, bm, bk, nblocks):
+    """An n×n BSR of ``nblocks`` dense random-normal (bm, bk) blocks at
+    random distinct positions, built straight through ``make_bsr`` (no
+    CSR), × an n×512 normal RHS."""
+    from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
+
+    nrb, ncb = n // bm, n // bk
+    picked = np.sort(rng.choice(nrb * ncb, size=nblocks, replace=False))
+    blocks = rng.standard_normal((nblocks, bm, bk), dtype=np.float32)
+    bsr = k1.make_bsr(blocks, picked // ncb, picked % ncb, n, n, device=dev)
+    return bsr, torch.randn((n, 512), generator=gen, device=dev)
+
+
+def bsr_head_f64(bsr, b, n_block_rows: int) -> torch.Tensor:
+    """The first ``n_block_rows`` block rows of ``A @ b`` in float64 on the
+    card, over every stored block."""
+    p = int(bsr.brow_ptr[n_block_rows])
+    bp = torch.zeros((bsr.padded_cols, b.shape[1]), dtype=torch.float64,
+                     device=b.device)
+    bp[: b.shape[0]] = b.double()
+    panels = bp.view(-1, bsr.bk, b.shape[1])[bsr.block_cols[:p].long()]
+    out = torch.zeros((n_block_rows, bsr.bm, b.shape[1]), dtype=torch.float64,
+                      device=b.device)
+    out.index_add_(0, bsr.block_rows[:p].long(),
+                   torch.bmm(bsr.blocks[:p].double(), panels))
+    return out.view(-1, b.shape[1])[: bsr.rows]
+
+
+# Float32 accuracy of K1 under HIGHEST, against the float64 product.
+K1_F64_REL = 1e-5
+
+
+def k1_vs_plain(bsr, b, shape_name: str, iters: int) -> tuple:
+    """K1 against its plain version and a float64 head slice at one
+    shape; returns (max abs err, kernel ms, plain ms)."""
+    from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
+
+    out = k1.spmm_bsr(bsr, b)
+    torch.cuda.synchronize()
+    err = compare(f"spmm_bsr kernel vs plain, {shape_name}", out,
+                  k1.spmm_bsr_reference(bsr, b))
+    nbr = min(bsr.n_block_rows, max(1, 512 // bsr.bm))
+    ref = bsr_head_f64(bsr, b, nbr)
+    head = out[: ref.shape[0]].double()
+    f64_err = float((head - ref).abs().max())
+    ref_max = float(ref.abs().max())
+    log(f"  spmm_bsr {shape_name}: first {ref.shape[0]} rows vs float64: "
+        f"max abs err {f64_err:.3e}, max|ref| {ref_max:.3e} (limit "
+        f"{K1_F64_REL:g} of max|ref|)")
+    if not f64_err <= K1_F64_REL * ref_max:
+        raise AssertionError(f"spmm_bsr {shape_name}: HIGHEST misses the "
+                             f"float32 bound against float64")
+    del out, ref, head
+    ms, plain_ms, four = time_pair(lambda: k1.spmm_bsr(bsr, b),
+                                   lambda: k1.spmm_bsr_reference(bsr, b),
+                                   iters)
+    per_block = 2 * bsr.bm * bsr.bk * b.shape[1]
+    log(f"  spmm_bsr {shape_name}: {bsr.nblocks} blocks, {bsr.n_live} live, "
+        f"{bsr.blocks.numel() * 4 / 2**20:.1f} MiB; kernel {four[1]:.4f} / "
+        f"{four[2]:.4f} ms, plain {four[0]:.4f} / {four[3]:.4f} ms (median "
+        f"of {iters}, plain-kernel-kernel-plain); kernel "
+        f"{per_block * bsr.n_live / ms / 1e9:.2f} TFLOP/s over live blocks, "
+        f"{per_block * bsr.nblocks / ms / 1e9:.2f} over all; plain "
+        f"{per_block * bsr.nblocks / plain_ms / 1e9:.2f} over all")
+    return err, ms, plain_ms
 
 
 def plain_spmm(a, b) -> torch.Tensor:
@@ -541,7 +615,6 @@ def main() -> None:
     from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
     from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
     from basic_sparse_matrix_tpu_torch.runtime import cuda_kernels
-    from basic_sparse_matrix_tpu_torch.runtime.timing import cuda_time_ms
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -591,36 +664,47 @@ def main() -> None:
 
     # ---- 3. kernel vs plain at the main path's shapes ---------------------
     log("kernel vs plain on the card:")
-    kernels = []
-    for name, src, replaces, kern, plain, iters in (
-            ("spmm_bsr", "basic_sparse_matrix_tpu_torch/csrc/spmm_bsr.cu",
-             "basic_sparse_matrix_tpu/ops/pallas/spmm_kernel.py:178",
-             lambda: k1.spmm_bsr(bsr, b_bsr),
-             lambda: k1.spmm_bsr_reference(bsr, b_bsr), 10),
-            ("spmm_stream",
-             "basic_sparse_matrix_tpu_torch/csrc/spmm_stream.cu",
-             "basic_sparse_matrix_tpu/ops/pallas/stream_kernel.py:178",
-             lambda: k2.spmm_stream(plan, b_st),
-             lambda: k2.spmm_stream_reference(plan, b_st), 5)):
-        out_k = kern()
+    for bm in (64, 256, 8):
+        log(f"  spmm_bsr launch config for bm {bm}: "
+            f"{k1.kernel_config(bm)}")
+    err, ms, plain_ms = k1_vs_plain(bsr, b_bsr, "(64, 256) rung", 10)
+    kernels = [{"name": "spmm_bsr", "route": "cuda",
+                "source": "basic_sparse_matrix_tpu_torch/csrc/spmm_bsr.cu",
+                "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
+                            "spmm_kernel.py:178",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms}]
+    # The other two pick_tiles shapes, each > 100 MB of blocks and a B
+    # larger than the 50 MB L2.
+    for n, bm, bk, nblocks in ((32768, 256, 512, 410),
+                               (65536, 8, 128, 25600)):
+        t0 = time.perf_counter()
+        other, b_other = random_bsr(rng, dev, gen, n, bm, bk, nblocks)
         torch.cuda.synchronize()
-        out_p = plain()
-        err = compare(f"{name} kernel vs plain", out_k, out_p)
-        del out_k, out_p
-        ms_p1 = cuda_time_ms(plain, warmup=1, iters=iters)
-        ms_k1 = cuda_time_ms(kern, warmup=2, iters=iters)
-        ms_k2 = cuda_time_ms(kern, warmup=0, iters=iters)
-        ms_p2 = cuda_time_ms(plain, warmup=0, iters=iters)
-        ms, plain_ms = min(ms_k1, ms_k2), min(ms_p1, ms_p2)
-        log(f"  {name}: kernel {ms_k1:.4f} / {ms_k2:.4f} ms, plain "
-            f"{ms_p1:.4f} / {ms_p2:.4f} ms (median of {iters}, "
-            f"plain-kernel-kernel-plain)")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    flops = 2 * bsr.nblocks * bsr.bm * bsr.bk * b_bsr.shape[1]
-    log(f"  spmm_bsr: {flops / kernels[0]['ms'] / 1e9:.2f} TFLOP/s over the "
-        f"padded blocks")
+        log(f"  ({bm}, {bk}) operand {n}x{n} built on the host through "
+            f"make_bsr: {time.perf_counter() - t0:.2f} s")
+        k1_vs_plain(other, b_other, f"({bm}, {bk})", 10)
+        del other, b_other
+        torch.cuda.empty_cache()
+
+    out_k = k2.spmm_stream(plan, b_st)
+    torch.cuda.synchronize()
+    err = compare("spmm_stream kernel vs plain", out_k,
+                  k2.spmm_stream_reference(plan, b_st))
+    del out_k
+    ms, plain_ms, four = time_pair(lambda: k2.spmm_stream(plan, b_st),
+                                   lambda: k2.spmm_stream_reference(plan,
+                                                                    b_st), 5)
+    log(f"  spmm_stream: kernel {four[1]:.4f} / {four[2]:.4f} ms, plain "
+        f"{four[0]:.4f} / {four[3]:.4f} ms (median of 5, "
+        f"plain-kernel-kernel-plain)")
+    kernels.append({"name": "spmm_stream", "route": "cuda",
+                    "source": "basic_sparse_matrix_tpu_torch/csrc/"
+                              "spmm_stream.cu",
+                    "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
+                                "stream_kernel.py:178",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms})
     gather_bytes = plan.nnz * (8 + 4 * b_st.shape[1]) \
         + plan.rows * b_st.shape[1] * 4
     log(f"  spmm_stream: {gather_bytes / kernels[1]['ms'] / 1e6:.1f} GB/s by "

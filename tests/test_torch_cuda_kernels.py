@@ -10,7 +10,9 @@ GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
 use).
 Tolerance: float32 summed in another order, ``rtol=1e-4`` and ``atol=1e-4``
 times the largest reference magnitude. The run reads (K3) copy values and
-must match exactly.
+must match exactly. K1's ``HIGHEST`` (3×TF32) must also come within 1e-5
+of max|ref| of a float64 product at depth 2048, TF32 switched on or not,
+and one TF32 pass (``DEFAULT``) must be at least 10× further off.
 """
 
 import dataclasses
@@ -48,21 +50,32 @@ def _sparse(rng, rows, cols, density):
 
 
 @pytest.mark.parametrize(
-    "rows,cols,density,n_rhs,tiles",
+    "rows,cols,density,n_rhs,tiles,hole",
     [
-        (128, 256, 0.05, 128, None),      # (256, 512) tiles, one block row
-        (100, 200, 0.1, 64, None),        # unaligned everything
-        (1000, 1000, 0.01, 10, None),     # (64, 256) tiles
-        (300, 2000, 0.001, 130, None),    # (8, 128) thin tiles
-        (64, 64, 0.0, 32, None),          # empty matrix, seeded blocks only
-        (130, 1000, 0.2, 70, (100, 96)),  # tiles that are no multiple of 8
+        (128, 256, 0.05, 128, None, None),      # (256, 512) tiles, one block row
+        (100, 200, 0.1, 64, None, None),        # unaligned everything
+        (1000, 1000, 0.01, 10, None, None),     # (64, 256) tiles
+        (300, 2000, 0.001, 130, None, None),    # (8, 128) thin tiles
+        (64, 64, 0.0, 32, None, None),          # empty matrix, seeded blocks only
+        (130, 1000, 0.2, 70, (100, 96), None),  # tiles that are no multiple of 8
+        (64, 8192, 0.3, 256, (64, 256), None),  # 32 live blocks in one block row
+        (600, 3000, 0.05, 512, (256, 512), None),  # fat tiles, m_sub 4
+        (512, 9000, 0.02, 512, (8, 128), None),    # thin tiles, many per row
+        (200, 1000, 0.1, 64, (64, 90), None),   # bk % 4 != 0: 4-byte A copies
+        (300, 700, 0.05, 77, (64, 256), (64, 192)),  # N % 4 != 0, seed-only rows
+        (100, 900, 0.1, 40, (8, 128), (16, 72)),     # thin, seed-only rows
     ],
 )
 def test_spmm_bsr_kernel_matches_plain(cuda, rows, cols, density, n_rhs,
-                                       tiles):
+                                       tiles, hole):
     rng = np.random.default_rng(42)
-    a = CSR.from_dense(_sparse(rng, rows, cols, density), device=cuda)
+    d = _sparse(rng, rows, cols, density)
+    if hole is not None:
+        d[hole[0]:hole[1]] = 0.0      # block rows left with their seed only
+    a = CSR.from_dense(d, device=cuda)
     bsr = k1.csr_to_bsr(a, *(tiles or (None, None)))
+    if hole is not None:
+        assert (torch.diff(bsr.live_ptr) == 0).any()
     b = torch.as_tensor(rng.standard_normal((cols, n_rhs)).astype(np.float32),
                         device=cuda)
     before = k1.LAUNCHES
@@ -70,6 +83,78 @@ def test_spmm_bsr_kernel_matches_plain(cuda, rows, cols, density, n_rhs,
     torch.cuda.synchronize()
     assert k1.LAUNCHES == before + 1
     _close(out, k1.spmm_bsr_reference(bsr, b))
+
+
+@pytest.mark.parametrize("rows,cols,density,n_rhs,tiles", [
+    (600, 3000, 0.05, 512, (256, 512)),
+    (1000, 1000, 0.01, 130, (64, 256)),
+    (512, 9000, 0.02, 70, (8, 128)),
+])
+def test_spmm_bsr_kernel_default_precision_matches_plain(
+        cuda, rows, cols, density, n_rhs, tiles):
+    rng = np.random.default_rng(43)
+    a = CSR.from_dense(_sparse(rng, rows, cols, density), device=cuda)
+    bsr = k1.csr_to_bsr(a, *tiles)
+    b = torch.as_tensor(rng.standard_normal((cols, n_rhs)).astype(np.float32),
+                        device=cuda)
+    out = k1.spmm_bsr(bsr, b, precision=k1.DEFAULT)
+    torch.cuda.synchronize()
+    _close(out, k1.spmm_bsr_reference(bsr, b, k1.DEFAULT))
+
+
+def _deep_block_row(cuda):
+    """One block row of 8 live (64, 256) blocks (depth 2048) × a 2048×128
+    normal RHS, with the float64 product on the host."""
+    rng = np.random.default_rng(17)
+    d = rng.standard_normal((64, 2048)).astype(np.float32)
+    b = rng.standard_normal((2048, 128)).astype(np.float32)
+    bsr = k1.csr_to_bsr(CSR.from_dense(d, device=cuda), 64, 256)
+    assert bsr.n_live == 8
+    ref = d.astype(np.float64) @ b.astype(np.float64)
+    return bsr, torch.as_tensor(b, device=cuda), ref
+
+
+def _err(out, ref):
+    return float(np.abs(out.cpu().numpy().astype(np.float64) - ref).max())
+
+
+def test_spmm_bsr_highest_reaches_float32_accuracy(cuda):
+    """HIGHEST (3×TF32) is within 1e-5 of max|ref| of the float64 product;
+    one TF32 pass (DEFAULT) is at least 10× worse on the same inputs, so
+    the split is live."""
+    bsr, b, ref = _deep_block_row(cuda)
+    hi = _err(k1.spmm_bsr(bsr, b), ref)
+    lo = _err(k1.spmm_bsr(bsr, b, precision=k1.DEFAULT), ref)
+    bound = 1e-5 * float(np.abs(ref).max())
+    assert hi <= bound, (hi, bound)
+    assert lo >= 10 * hi, (lo, hi)
+
+
+def test_spmm_bsr_ignores_global_tf32_switch(cuda):
+    bsr, b, ref = _deep_block_row(cuda)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = k1.spmm_bsr(bsr, b)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    assert _err(out, ref) <= 1e-5 * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("bm", [8, 64, 256])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_spmm_bsr_kernel_config_fits_the_card(cuda, bm, precision):
+    """Each configuration runs at least two thread blocks per SM, with at
+    most a few spilled words (the fat tile spills 32 bytes at 255
+    registers on the H100)."""
+    cfg = k1.kernel_config(bm, precision)
+    assert cfg["blocks_per_sm"] >= 2 and cfg["local_bytes"] <= 64
+    assert (cfg["tile_m"], cfg["tile_n"]) == ((8, 128) if bm == 8
+                                              else (64, 128))
 
 
 @pytest.mark.parametrize(

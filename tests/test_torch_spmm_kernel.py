@@ -2,8 +2,12 @@
 CPU: the host layout ``csr_to_bsr`` must equal the JAX one exactly (blocks,
 block coordinates, seeded zero blocks), and the plain version
 ``spmm_bsr_reference`` must match the JAX Pallas kernel in interpret mode
-to ``rtol=atol=1e-4`` (the JAX kernel test's own bound). The CUDA kernel
-itself is tested on the card (``test_torch_cuda_kernels.py``).
+to ``rtol=atol=1e-4`` (the JAX kernel test's own bound). The live-block
+list the kernel walks must name exactly the JAX layout's blocks that hold
+an entry, and dropping the other blocks must leave the plain version's
+output bit for bit the same. On integers 0..15 both precisions equal the
+JAX kernel's exactly. The CUDA kernel itself is tested on the card
+(``test_torch_cuda_kernels.py``).
 """
 
 import jax.numpy as jnp
@@ -136,6 +140,131 @@ def test_bsr_profitable_cpu_gate_and_fill_logic(density):
     assert pk.bsr_profitable(p, bt, force=True) == \
         jk.bsr_profitable(j, 128, force=True)
     assert pk.bsr_profitable(p, bt[:, :32], force=True) is False
+
+
+def _empty_block_rows():
+    """Entries in block rows 0 and 3 only (of 5 at bm = 64): three block
+    rows hold nothing but their seeded zero block."""
+    rng = np.random.default_rng(11)
+    d = np.zeros((300, 700), np.float32)
+    d[:40] = _case(40, 700, 0.02, 1, seed=12)[0]
+    d[200:230, 300:600] = rng.standard_normal((30, 300))
+    return d
+
+
+LIVE_CASES = [_case(*c)[0] for c in CASES] + [_empty_block_rows()]
+
+
+@pytest.mark.parametrize("d", LIVE_CASES)
+def test_live_blocks_are_the_jax_blocks_with_entries(d):
+    jb = jk.csr_to_bsr(J.CSR.from_dense(d))
+    bsr = pk.csr_to_bsr(P.CSR.from_dense(d))
+    r, c = np.nonzero(d)
+    keys = set(zip((r // jb.bm).tolist(), (c // jb.bk).tolist()))
+    want = [t for t, key in enumerate(zip(np.asarray(jb.block_rows).tolist(),
+                                          np.asarray(jb.block_cols).tolist()))
+            if key in keys]
+    assert bsr.live_idx.tolist() == want
+    assert bsr.live_idx.dtype == torch.int32
+    assert bsr.live_ptr.dtype == torch.int32
+    rows_of_live = np.asarray(jb.block_rows)[want]
+    assert bsr.live_ptr.tolist() == [0] + np.cumsum(np.bincount(
+        rows_of_live, minlength=bsr.n_block_rows)).tolist()
+
+
+def test_live_list_skips_seeded_blocks_and_empty_block_rows():
+    d = _empty_block_rows()
+    bsr = pk.csr_to_bsr(P.CSR.from_dense(d))
+    assert bsr.n_block_rows == 5 and bsr.nblocks > bsr.n_live
+    counts = np.diff(bsr.live_ptr.numpy())
+    assert counts[[1, 2, 4]].tolist() == [0, 0, 0]
+    assert (counts[[0, 3]] > 0).all()
+    dead = np.setdiff1d(np.arange(bsr.nblocks), bsr.live_idx.numpy())
+    assert float(bsr.blocks[dead].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("d", LIVE_CASES)
+def test_make_bsr_from_jax_arrays_derives_the_same_live_list(d):
+    jb = jk.csr_to_bsr(J.CSR.from_dense(d))
+    pb = pi.bsr_from_numpy(jb.blocks, jb.block_rows, jb.block_cols,
+                           jb.rows, jb.cols)
+    bsr = pk.csr_to_bsr(P.CSR.from_dense(d))
+    assert torch.equal(pb.live_idx, bsr.live_idx)
+    assert torch.equal(pb.live_ptr, bsr.live_ptr)
+
+
+@pytest.mark.parametrize("d", LIVE_CASES)
+def test_plain_version_over_live_blocks_equals_full_bitwise(d):
+    bsr = pk.csr_to_bsr(P.CSR.from_dense(d))
+    live = bsr.live_idx.long()
+    only_live = pk.make_bsr(bsr.blocks[live].numpy(),
+                            bsr.block_rows[live].numpy(),
+                            bsr.block_cols[live].numpy(), bsr.rows, bsr.cols)
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (d.shape[1], 24)).astype(np.float32))
+    assert torch.equal(pk.spmm_bsr_reference(only_live, b),
+                       pk.spmm_bsr_reference(bsr, b))
+
+
+def test_make_bsr_rejects_bad_live_lists():
+    blocks = np.ones((2, 8, 128), np.float32)
+    for live in ([1, 0], [0, 2], [-1], [0, 0]):
+        with pytest.raises(ValueError):
+            pk.make_bsr(blocks, [0, 1], [0, 0], 16, 128, live_idx=live)
+    bsr = pk.make_bsr(blocks, [0, 1], [0, 0], 16, 128, live_idx=[1])
+    assert bsr.live_ptr.tolist() == [0, 0, 1]
+
+
+@pytest.mark.parametrize("precision", ["HIGHEST", "DEFAULT"])
+@pytest.mark.parametrize("rows,cols,density,n_rhs", [
+    (128, 256, 0.05, 128), (100, 200, 0.3, 64), (300, 2000, 0.004, 130)])
+def test_precisions_match_jax_exactly_on_small_integers(
+        precision, rows, cols, density, n_rhs):
+    import jax
+
+    rng = np.random.default_rng(8)
+    d = ((rng.random((rows, cols)) < density)
+         * rng.integers(0, 16, (rows, cols))).astype(np.float32)
+    b = rng.integers(0, 16, (cols, n_rhs)).astype(np.float32)
+    jp = getattr(jax.lax.Precision, precision)
+    jout = np.asarray(jk.spmm_bsr(jk.csr_to_bsr(J.CSR.from_dense(d)),
+                                  jnp.asarray(b), precision=jp))
+    bsr = pk.csr_to_bsr(P.CSR.from_dense(d))
+    tb = torch.from_numpy(b)
+    out = pk.spmm_bsr_reference(bsr, tb, precision.lower())
+    assert np.array_equal(out.numpy(), jout)
+    # The wrapper takes the JAX enum member by name, and ignores bn.
+    assert torch.equal(pk.spmm_bsr(bsr, tb, bn=256, precision=jp), out)
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)            # TF32 spacing at 1
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4,
+                      1 + 3 * ulp / 4, 0.0, np.inf, -np.inf, np.nan],
+                     dtype=torch.float32)
+    got = pk.round_tf32(x)
+    want = [one + ulp, -(one + ulp), one, one + ulp, 0.0, np.inf, -np.inf]
+    assert got[:7].tolist() == [float(w) for w in want]
+    assert bool(torch.isnan(got[7]))
+    # Every rounded value keeps at most 10 mantissa bits.
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32))
+    r = pk.round_tf32(y)
+    assert int((r.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert float(((r - y).abs() / y.abs()).max()) <= 2.0 ** -11
+
+
+def test_default_precision_rounds_and_bad_precision_raises():
+    d, b = _case(128, 256, 0.1, 32, seed=9)
+    bsr = pk.csr_to_bsr(P.CSR.from_dense(d))
+    tb = torch.from_numpy(b)
+    hi = pk.spmm_bsr(bsr, tb)
+    lo = pk.spmm_bsr(bsr, tb, precision=pk.DEFAULT)
+    assert torch.equal(hi, pk.spmm_bsr(bsr, tb, precision=pk.HIGHEST))
+    assert 0 < float((hi - lo).abs().max()) <= 1e-2 * float(hi.abs().max())
+    with pytest.raises(ValueError):
+        pk.spmm_bsr(bsr, tb, precision="bfloat16")
 
 
 @pytest.mark.parametrize("rows,cols,nnz", [(10, 10, 100), (1000, 1000, 5000),
