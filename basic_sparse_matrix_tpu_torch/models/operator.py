@@ -1,0 +1,106 @@
+"""Prepared linear operator — the serving-path wrapper.
+
+Counterpart of ``basic_sparse_matrix_tpu/models/operator.py``. Production
+use reuses one matrix across many multiplies and solves; a
+:class:`SparseOperator` prepares each piece once (format conversions,
+factorization and solve schedules, the IC(0) preconditioner, the Lanczos
+set-up) and keeps it for the next call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..ops.csr import CSR
+from ..ops.spmm import mul_dense, mul_vector
+
+
+@dataclasses.dataclass(eq=False)
+class SparseOperator:
+    """Wraps a CSR with memoised fast-path state.
+
+    ``matmul``/``matvec`` reuse the dispatch caches on the CSR instance
+    (``mul_dense``'s ladder, so the BSR and streaming kernels run where it
+    picks them); ``solve`` builds and caches a :class:`DirectSolver`;
+    ``solve_cg`` the IC(0)-PCG set-up; ``solve_chebyshev``,
+    ``eigen_values`` and ``condition_estimate`` share one Lanczos set-up.
+    """
+
+    a: CSR
+    _direct: Optional[object] = None
+    _pcg: Optional[object] = None
+    _lanczos: Optional[object] = None
+
+    # ------------------------------------------------------------------ #
+    def matmul(self, b) -> torch.Tensor:
+        return mul_dense(self.a, b)
+
+    def matvec(self, x) -> torch.Tensor:
+        return mul_vector(self.a, x)
+
+    def matmul_sparse(self, other: CSR) -> CSR:
+        """Sparse × sparse product: needs ``ops/spgemm.py``, which the port
+        does not have yet."""
+        raise NotImplementedError(
+            "SparseOperator.matmul_sparse needs ops/spgemm.py, which is not "
+            "ported yet (ROADMAP.md queue 1 item 3)")
+
+    __matmul__ = matmul
+
+    # ------------------------------------------------------------------ #
+    def _ensure_direct(self):
+        if self._direct is None:
+            from .solve import prepare_direct
+
+            self._direct = prepare_direct(self.a)
+        return self._direct
+
+    def solve(self, b) -> torch.Tensor:
+        """Direct SPD solve; ordering, factorization (banded / BCR /
+        supernodal / scatter-list, the :class:`DirectSolver` ladder) and
+        solve schedules are computed once and reused for every later
+        right-hand side."""
+        return self._ensure_direct().solve(b)
+
+    def solve_cg(self, b, tol: float = 1e-6, max_iters: int = 1000):
+        """IC(0)-preconditioned CG; the preconditioner is built once.
+        Returns (x, iterations, final relative residual)."""
+        from .pcg import PCGSetup, pcg_solve
+
+        if self._pcg is None:
+            self._pcg = PCGSetup.build(self.a)
+        return pcg_solve(self.a, b, tol=tol, max_iters=max_iters,
+                         setup=self._pcg)
+
+    def solve_chebyshev(self, b, iters: int = 100):
+        """Chebyshev semi-iteration (SPD; no inner products in the loop),
+        bounds from the shared Lanczos set-up. Returns (x, final relative
+        residual)."""
+        from .chebyshev import chebyshev_solve
+
+        return chebyshev_solve(self.a, b, iters=iters,
+                               setup=self._ensure_lanczos())
+
+    # ------------------------------------------------------------------ #
+    def _ensure_lanczos(self):
+        if self._lanczos is None:
+            from .lanczos import LanczosSetup
+
+            self._lanczos = LanczosSetup.build(self.a)
+        return self._lanczos
+
+    def eigen_values(self, k: int = 32) -> torch.Tensor:
+        """k Ritz values (ascending; symmetric operand) by Lanczos, without
+        densifying."""
+        from .lanczos import eigen_values_lanczos
+
+        return eigen_values_lanczos(self.a, k, setup=self._ensure_lanczos())
+
+    def condition_estimate(self, k: int = 32) -> float:
+        """2-norm condition estimate (SPD operand)."""
+        from .lanczos import condition_estimate
+
+        return condition_estimate(self.a, k, setup=self._ensure_lanczos())

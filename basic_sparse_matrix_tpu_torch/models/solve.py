@@ -4,8 +4,8 @@ Counterpart of ``basic_sparse_matrix_tpu/models/solve.py`` and of the
 reference's ``solve`` (``A = L·Lᵀ``; ``L y = b``; ``Lᵀ x = y``), with the
 right-hand-side columns batched. :func:`solve` densifies; the
 :class:`DirectSolver` behind :func:`solve_sparse` orders, factors on the
-supernodal tier and solves with the level-scheduled sparse triangular
-solves, all on the matrix's device.
+tier the JAX package's ladder picks (banded, BCR, supernodal or
+scatter-list) and solves, all on the matrix's device.
 """
 
 from __future__ import annotations
@@ -25,12 +25,11 @@ from .triangular import _as_array
 def solve_dense(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """SPD solve on dense operands in float32. A matrix that is not
     positive definite gives NaN, as ``jnp.linalg.cholesky`` does."""
-    a = a.to(torch.float32)
+    from .cholesky import cholesky_dense
+
     b = b.to(torch.float32)
     with matmul_precision():
-        l, info = torch.linalg.cholesky_ex(a)
-        if int(info) != 0:
-            l = torch.full_like(l, float("nan"))
+        l = cholesky_dense(a)
         y = torch.linalg.solve_triangular(l, b, upper=False)
         return torch.linalg.solve_triangular(l.mT, y, upper=True)
 
@@ -50,22 +49,29 @@ def solve(a: CSR, b) -> torch.Tensor:
 class DirectSolver:
     """Prepared sparse direct solver: fill-reducing ordering, numeric
     factorization and triangular-solve schedules built once at
-    construction; :meth:`solve` then runs only device work.
+    construction; :meth:`solve` then runs only device work. The
+    serving-path analogue of scipy's ``factorized``, cached by
+    ``SparseOperator`` and used one-shot by :func:`solve_sparse`.
 
-    The tier ladder is the JAX package's: the banded block-tridiagonal
-    tier when the (reordered) bandwidth fits a small block, the supernodal
-    tier when the pattern amalgamates into panels of average width >= 2,
-    the scalar scatter-list tier otherwise. Only the supernodal tier is
-    ported; where the ladder picks another tier the solver raises
-    ``NotImplementedError`` (it does not quietly take another tier).
+    The tier ladder is the JAX package's, cheapest test first:
 
-    ``timings`` holds the host-clock seconds of each set-up phase:
-    ``order`` (ordering and permutation), ``analyze`` (tier tests and the
-    supernodal schedule), ``numeric`` (the factorization, synchronised with
-    the device), ``assemble`` (the factor's CSR) and ``schedules`` (the two
-    triangular-solve schedules)."""
+    1. ``"banded-bcr"`` (config ``banded_solver="bcr"``) or ``"banded"``
+       (any other value: the block scan) when the (reordered) bandwidth
+       fits a small block (``banded_block_choice``);
+    2. ``"supernodal"`` when the pattern amalgamates into panels of
+       average width >= 2;
+    3. ``"scatter"``, the scalar scatter-list factorization, otherwise.
+
+    ``timings`` holds the host-clock seconds of each set-up phase, each lap
+    synchronised with the device: ``order`` (ordering and permutation) and
+    ``analyze`` on every tier (the tier tests, plus the blocks (D, E) on a
+    banded tier or the schedule on the others), ``numeric`` (the
+    factorization), and on the supernodal and scatter tiers ``assemble``
+    (the factor's CSR) and ``schedules`` (the two triangular-solve
+    schedules). A banded tier has no ``assemble`` or ``schedules``."""
 
     def __init__(self, a: CSR, *, reorder: bool = True):
+        from ..ops.csr import to_tensor
         from ..ops.reorder import (
             best_permutation,
             nd_permutation,
@@ -73,7 +79,9 @@ class DirectSolver:
             rcm_permutation,
         )
         from . import banded as _bd
+        from . import sparse_cholesky as _sc
         from . import supernodal as _sn
+        from .bcr import bcr_from_blocks
         from .sparse_triangular import build_schedule
 
         check(a.rows == a.cols, NonSquareMatrix,
@@ -83,6 +91,8 @@ class DirectSolver:
         self.device = a.device
         self.perm = None
         self.timings = {}
+        self._banded = None
+        self._l = self._fwd = self._bwd = None
         clock = _Clock(a.device, self.timings)
         if reorder:
             if cfg.ordering == "auto":
@@ -96,22 +106,32 @@ class DirectSolver:
         clock.lap("order")
         nb = _bd.banded_block_choice(a)
         if nb is not None:
-            raise NotImplementedError(
-                f"DirectSolver: the banded tier (block {nb}, banded_solver="
-                f"{cfg.banded_solver!r}) is not ported yet (ROADMAP.md queue "
-                f"1 item 4); set banded_max_block=0 for the supernodal tier")
+            D, E = (to_tensor(x, a.device) for x in _bd.band_blocks(a, nb))
+            clock.lap("analyze")
+            if cfg.banded_solver == "bcr":
+                self.kind = "banded-bcr"
+                self._banded = bcr_from_blocks(D, E, a.rows)
+            else:
+                self.kind = "banded"
+                self._banded = _bd.BandedFactor(
+                    *_bd.cholesky_banded_blocks(D, E), n=a.rows)
+            clock.lap("numeric")
+            return
         width, _ = _sn.supernode_stats(a, relax=cfg.supernodal_relax)
-        if width < 2.0:
-            raise NotImplementedError(
-                f"DirectSolver: average panel width {width:.2f} < 2 selects "
-                f"the scatter-list tier (models/sparse_cholesky.py), which is "
-                f"not ported yet (ROADMAP.md queue 1 item 5)")
-        self.sched = _sn.analyze_supernodal(a, relax=cfg.supernodal_relax)
-        clock.lap("analyze")
-        lvals = _sn.factorize_supernodal(self.sched, a.values)
-        clock.lap("numeric")
-        self._l = _sn.assemble_factor(a, lvals, self.sched)
-        self.kind = "supernodal"
+        if width >= 2.0:
+            self.kind = "supernodal"
+            self.sched = _sn.analyze_supernodal(a, relax=cfg.supernodal_relax)
+            clock.lap("analyze")
+            lvals = _sn.factorize_supernodal(self.sched, a.values)
+            clock.lap("numeric")
+            self._l = _sn.assemble_factor(a, lvals, self.sched)
+        else:
+            self.kind = "scatter"
+            self.sched = _sc.analyze(a)
+            clock.lap("analyze")
+            lvals = _sc.factorize(self.sched, a.values)
+            clock.lap("numeric")
+            self._l = _sc.csc_to_csr_l(self.sched, lvals)
         clock.lap("assemble")
         self._fwd = build_schedule(self._l, lower=True)
         self._bwd = build_schedule(self._l.transpose(), lower=False)
@@ -122,6 +142,7 @@ class DirectSolver:
         Dense wrapper, a vector or an (n, k) array. 1-D input returns
         1-D."""
         from ..ops.reorder import apply_perm
+        from . import banded as _bd
         from .sparse_triangular import solve_triangular_sparse
 
         squeeze = not isinstance(b, Dense) and (
@@ -131,8 +152,13 @@ class DirectSolver:
               f"solve: A n={self.n} vs b {tuple(rhs.shape)}")
         if self.perm is not None:
             rhs = apply_perm(rhs, self.perm)
-        y = solve_triangular_sparse(self._l, rhs, self._fwd)
-        x = solve_triangular_sparse(self._l, y, self._bwd, lower=False)
+        if self.kind == "banded-bcr":
+            x = self._banded.solve(rhs)
+        elif self.kind == "banded":
+            x = _bd.solve_factored_banded(self._banded, rhs)
+        else:
+            y = solve_triangular_sparse(self._l, rhs, self._fwd)
+            x = solve_triangular_sparse(self._l, y, self._bwd, lower=False)
         if self.perm is not None:
             x = apply_perm(x, self.perm, inverse=True)
         return x[:, 0] if squeeze else x
@@ -161,9 +187,10 @@ def prepare_direct(a: CSR, *, reorder: bool = True) -> DirectSolver:
 
 def solve_sparse(a: CSR, b, *, reorder: bool = True) -> torch.Tensor:
     """Fully sparse solve: fill-reducing preordering (config ``ordering``;
-    the returned x is for the original system) → supernodal Cholesky →
-    level-scheduled forward/backward substitution. The scalable counterpart
-    of :func:`solve` for matrices where densifying is wasteful."""
+    the returned x is for the original system) → banded / supernodal /
+    scatter-list Cholesky → block or level-scheduled forward/backward
+    substitution. The scalable counterpart of :func:`solve` for matrices
+    where densifying is wasteful."""
     return DirectSolver(a, reorder=reorder).solve(_as_array(b, a.device))
 
 

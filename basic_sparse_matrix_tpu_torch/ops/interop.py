@@ -5,7 +5,12 @@ the JAX package.
 the port's :class:`CSR`, ``BSR`` and ``StreamPlan`` from the numpy arrays of
 the JAX package's objects (``jax_csr.numpy()``, ``np.asarray(jax_bsr.blocks)``
 and so on), so both packages can be fed the identical matrix and the
-identical plan. Nothing here imports JAX: the caller hands over numpy.
+identical plan. ``banded_factor_from_numpy``, ``bcr_factor_from_numpy``,
+``cholesky_schedule_from_numpy`` and ``pcg_setup_from_numpy`` do the same
+for solver state (a JAX ``BandedFactor``, ``BCRFactor``,
+``CholeskySchedule`` and the IC(0) factor of a JAX ``PCGSetup``), so a test
+can feed the port's solve the JAX factor and tell a factor fault from a
+solve fault. Nothing here imports JAX: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.shapes import DimLike
-from .csr import CSR
+from .csr import CSR, to_tensor
 
 
 def csr_from_numpy(indptr, indices, values, shape: DimLike,
@@ -42,6 +47,72 @@ def stream_plan_from_numpy(ii, kk, vv, *, rows: int, cols: int, tile_m: int,
     return make_stream_plan(np.asarray(ii), np.asarray(kk), np.asarray(vv),
                             rows=rows, cols=cols, tile_m=tile_m,
                             tile_k=tile_k, nnz=nnz, device=device)
+
+
+def banded_factor_from_numpy(L, F, n: int, device=None):
+    """The port's ``BandedFactor`` from a JAX ``BandedFactor``'s ``L``,
+    ``F`` and ``n``."""
+    from ..models.banded import BandedFactor
+
+    return BandedFactor(L=to_tensor(np.asarray(L, np.float32), device),
+                        F=to_tensor(np.asarray(F, np.float32), device), n=n)
+
+
+def bcr_factor_from_numpy(ls, wls, wrs, elefts, erights, l0, n: int,
+                          device=None):
+    """The port's ``BCRFactor`` from a JAX ``BCRFactor``'s per-level tuples
+    and final factor."""
+    from ..models.bcr import BCRFactor
+
+    def up(xs):
+        return tuple(to_tensor(np.asarray(x, np.float32), device) for x in xs)
+    return BCRFactor(ls=up(ls), wls=up(wls), wrs=up(wrs), elefts=up(elefts),
+                     erights=up(erights),
+                     l0=to_tensor(np.asarray(l0, np.float32), device), n=n)
+
+
+def cholesky_schedule_from_numpy(a_src_pos, a_vals_idx, upd_dst, upd_a, upd_b,
+                                 col_pos, l_col_ptr, l_row_idx, nnz_l: int,
+                                 n: int, device=None):
+    """The port's ragged ``CholeskySchedule`` from a JAX one's padded
+    tables: entries equal to the scratch slot (``nnz_l``) are padding and
+    are dropped; levels and the order inside each level are kept."""
+    from ..models.sparse_cholesky import CholeskySchedule
+
+    upd_dst, upd_a, upd_b = (np.asarray(x, np.int64)
+                             for x in (upd_dst, upd_a, upd_b))
+    col_pos = np.asarray(col_pos, np.int64)
+    live = upd_dst != nnz_l                       # (nlev, max_upd)
+    live_col = col_pos[:, :, 0] != nnz_l          # (nlev, max_cols)
+    below = col_pos[:, :, 1:]
+    live_off = (below != nnz_l) & live_col[:, :, None]
+    slot = np.broadcast_to(np.arange(col_pos.shape[1])[None, :, None],
+                           below.shape)
+
+    def ptr(mask):
+        return tuple(int(v) for v in np.concatenate(
+            [[0], np.cumsum(mask.reshape(mask.shape[0], -1).sum(1))]))
+
+    def up(x):
+        return to_tensor(np.ascontiguousarray(x, dtype=np.int64), device)
+    return CholeskySchedule(
+        a_src_pos=up(a_src_pos), a_vals_idx=up(a_vals_idx),
+        upd_dst=up(upd_dst[live]), upd_a=up(upd_a[live]),
+        upd_b=up(upd_b[live]), col_diag=up(col_pos[:, :, 0][live_col]),
+        col_off=up(below[live_off]), col_seg=up(slot[live_off]),
+        upd_ptr=ptr(live), col_ptr=ptr(live_col), off_ptr=ptr(live_off),
+        nnz_l=int(nnz_l), n=int(n), l_col_ptr=np.asarray(l_col_ptr),
+        l_row_idx=np.asarray(l_row_idx))
+
+
+def pcg_setup_from_numpy(a: CSR, l_indptr, l_indices, l_values):
+    """The port's ``PCGSetup`` for ``a`` with a given IC(0) factor (the host
+    CSR triple of the JAX package's factor: ``csc_to_csr_l(sched,
+    factorize(sched, a.values)).numpy()``), on ``a``'s device."""
+    from ..models.pcg import PCGSetup
+
+    return PCGSetup.from_factor(a, csr_from_numpy(
+        l_indptr, l_indices, l_values, (a.rows, a.rows), device=a.device))
 
 
 def to_scipy(a: CSR):

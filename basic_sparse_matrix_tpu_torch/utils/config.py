@@ -14,12 +14,14 @@ sets that flag to False explicitly (and cuDNN's likewise) around each dense
 product, and restores the caller's setting afterwards.
 
 The direct solver reads ``ordering``, ``supernodal_relax``,
-``supernodal_gather``, ``supernodal_scatter``, the ``banded_*`` dispatch
-fields (the banded tier itself is not ported: where it would be picked,
-``DirectSolver`` raises) and ``dense_cholesky_max_n`` /
-``dense_cholesky_min_density`` (``solve_auto``), with the JAX package's
-meanings; ``supernodal_gather="kernel"`` forces the K3 run reads (the JAX
-package maps it to element reads).
+``supernodal_gather``, ``supernodal_scatter``, the ``banded_*`` fields
+(``banded_solver="bcr"`` picks block cyclic reduction, any other value the
+block scan) and ``dense_cholesky_max_n`` / ``dense_cholesky_min_density``
+(``solve_auto``, ``cholesky_auto``), with the JAX package's meanings;
+``supernodal_gather="kernel"`` forces the K3 run reads (the JAX package
+maps it to element reads). PCG and Lanczos read ``ell_max_overhead`` for
+their ELL view, and ``qr_decomp``/``eigen_values`` the densify budget
+``dense_dispatch_max_bytes``.
 
 Fields the port accepts but does not act on, because they select between
 formulations of one function that only mattered to XLA on the TPU:

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two main paths once on one NVIDIA GPU: CSR × dense
-SpMM (``mul_dense``) and the sparse direct solver (``prepare_direct`` →
-supernodal Cholesky → level-scheduled triangular solves).
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU: CSR × dense
+SpMM (``mul_dense``), the sparse direct solver (``prepare_direct`` →
+supernodal Cholesky → level-scheduled triangular solves), and the rest of
+``models/`` through the serving wrapper ``SparseOperator``: every
+``DirectSolver`` tier (supernodal, banded scan, BCR, scatter-list), IC(0)-PCG,
+Lanczos, Chebyshev, dense Cholesky and TSQR.
 
 Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
@@ -53,6 +56,41 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    auto, vmem and pallas with ``supernodal_gather="kernel"``, with TF32
    switched on by the caller beforehand: every matmul of the factorization
    must still see TF32 off.
+9. Serving wrapper, default config: ``SparseOperator(a)`` on the 33³
+   Laplacian; ``solve`` with 1 (twice: with set-up, then from the cached
+   factor) and 8 right-hand sides. The tier must be "supernodal" (``auto``
+   picks ND there) and K3, K4 and K5 must launch (counts set to 0 right
+   before, read right after); the same error limits as phase 6.
+   ``op.matmul`` on an 8-column RHS against the plain gather/segment sum.
+10. Banded tiers at full size: the same matrix under ``ordering="rcm"``
+    (block 840, 43 block rows, BCR pads to 64): ``kind == "banded-bcr"``,
+    then ``banded_solver="scan"`` and ``kind == "banded"``; each solves 1
+    and 8 right-hand sides under the same limits; set-up by phase, ms per
+    solve, peak device memory.
+11. Scatter-list tier at full size: the Laplacian of a seeded random
+    recursive tree plus I at n = 10⁶ (a radial distribution grid's shape)
+    under ``ordering="rcm"``: ``kind == "scatter"``, the same limits; the
+    schedule's levels, triples, ragged table bytes and the bytes the JAX
+    package's padded tables would take.
+12. Iterative and spectral path on the 33³ Laplacian: the IC(0) set-up
+    (L's pattern levels), timed; ``op.solve_cg`` to ``tol=1e-6`` with the
+    relative residual recomputed in float64 on the card (<= 1e-5) and the
+    ms per iteration; ``op.eigen_values(32)`` against the analytic
+    λ_max = 6(1 + cos(π/34)) (Ritz values lie inside the spectrum; a
+    sanity bound of 1e-2 relative, see ``RITZ_MAX_REL``) and λ_min (not
+    more than 1e-4 below), ``condition_estimate`` beside the analytic
+    467.84; the 32 Ritz values from one seeded numpy start vector on the
+    card against the CPU's (``|d| <= 1e-4·|ref| + 1e-6·max|ref|``);
+    ``chebyshev_solve`` with the analytic bounds and 200 iterations
+    (relative residual in float64 <= 1e-4), and ``op.solve_chebyshev``
+    with Lanczos bounds (printed).
+13. Card against CPU at k = 14 (n = 2744), natural order, TF32 switched on
+    by the caller and seen off by every matmul: the solutions and factors
+    of the BCR, scan and scatter-list tiers (``supernodal_relax=0``,
+    banded off) and ``cholesky_auto``'s factor; then ``tsqr`` at
+    1,048,576 × 64 (``‖A − QR‖_F/‖A‖_F <= 1e-5``, ``max|QᵀQ − I| <=
+    1e-4`` in float64) timed beside ``torch.linalg.qr`` on the same
+    operand.
 
 Tolerance on the card: float32 summed in another order than the plain
 version, so ``|out - ref| <= 1e-4 * |ref| + 1e-4 * max|ref|``; the run
@@ -65,6 +103,8 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import time
@@ -229,7 +269,8 @@ def plain_spmm(a, b) -> torch.Tensor:
     return out
 
 
-def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+def compare(name: str, out: torch.Tensor, ref: torch.Tensor, *,
+            rtol: float = RTOL, atol_of_max: float = ATOL_OF_MAX) -> float:
     """Raise unless ``out`` matches ``ref`` within the stated tolerance;
     return the max abs error."""
     if out.shape != ref.shape:
@@ -239,7 +280,7 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
         raise AssertionError(f"{name}: non-finite values")
     diff = (out - ref).abs()
     ref_max = float(ref.abs().max()) if ref.numel() else 0.0
-    bound = RTOL * ref.abs() + ATOL_OF_MAX * ref_max
+    bound = rtol * ref.abs() + atol_of_max * ref_max
     max_abs = float(diff.max()) if diff.numel() else 0.0
     max_rel = max_abs / ref_max if ref_max else 0.0
     if not bool((diff <= bound).all()):
@@ -606,6 +647,364 @@ def formulations_on_card(dev) -> None:
                           supernodal_scatter="auto")
 
 
+# ---- the rest of models/ (phases 9-13) -----------------------------------
+TREE_N = 1_000_000
+BANDED_NB = 840      # block_size_for(RCM bandwidth 833, n = 35,937)
+TSQR_SHAPE = (1 << 20, 64)
+LAMBDA_MAX = 6.0 * (1.0 + np.cos(np.pi / (SOLVER_K + 1)))
+LAMBDA_MIN = 6.0 * (1.0 - np.cos(np.pi / (SOLVER_K + 1)))
+PCG_RES_MAX = 1e-5
+CHEBY_RES_MAX = 1e-4
+# A k-step Ritz value lies inside the spectrum and converges toward λ_max at
+# a rate set by the start vector and the top of the spectrum (eigenvalues
+# 0.2% apart here): at k = 32, seeded start vectors land 1.0e-3 to 4.5e-3
+# below it (three on the CPU, the card's seed 0), so that bound is a sanity
+# check of convergence. What holds the card's arithmetic is the comparison
+# of its Ritz values with the CPU's from one start vector: float32 rounding
+# moves them by up to 5.5e-5 of their size on the CPU (the JAX package
+# against the port).
+RITZ_MAX_REL = 1e-2
+RITZ_MIN_SLACK = 1e-4
+RITZ_RTOL = 1e-4
+RITZ_ATOL_OF_MAX = 1e-6
+TSQR_RES_MAX = 1e-5
+TSQR_ORTH_MAX = 1e-4
+
+
+def use_config(**fields) -> None:
+    """Every config field at its default, then ``fields``."""
+    from basic_sparse_matrix_tpu_torch.utils import config
+
+    config.set_config(config.Config(**fields))
+
+
+def tree_laplacian(n: int, seed: int):
+    """The Laplacian of a random recursive tree plus I (node i joins a
+    uniformly random earlier node) as COO arrays."""
+    rng = np.random.default_rng(seed)
+    par = (rng.random(n - 1) * np.arange(1, n)).astype(np.int64)
+    ch = np.arange(1, n)
+    deg = np.bincount(par, minlength=n) + np.bincount(ch, minlength=n)
+    rows = np.concatenate([np.arange(n), ch, par])
+    cols = np.concatenate([np.arange(n), par, ch])
+    vals = np.concatenate([deg + 1.0, -np.ones(2 * (n - 1))])
+    return n, rows, cols, vals.astype(np.float32)
+
+
+def matvec64(a, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in float64 on ``a``'s device (x of shape (n,) or (n, k))."""
+    x = x.double()
+    rows = a.row_ids().long()
+    vals = a.values.double().reshape((-1,) + (1,) * (x.ndim - 1))
+    out = torch.zeros((a.rows,) + tuple(x.shape[1:]), dtype=torch.float64,
+                      device=x.device)
+    return out.index_add_(0, rows, vals * x.index_select(0, a.indices.long()))
+
+
+def seeded_system(a, seed: int):
+    """x_true (n, 8) normal in float64 and b = A·x_true in float32, on the
+    card."""
+    gen = torch.Generator(device=a.device).manual_seed(seed)
+    x_true = torch.randn((a.rows, 8), generator=gen, dtype=torch.float64,
+                         device=a.device)
+    return x_true, matvec64(a, x_true).float()
+
+
+def check_solution(name: str, a, x, x_true, b) -> None:
+    """Normwise backward and forward errors in float64 on the card, per
+    column, against phase 6's limits."""
+    x = x.reshape(a.rows, -1).double()
+    x_true = x_true[:, : x.shape[1]]
+    b = b.reshape(a.rows, -1)[:, : x.shape[1]].double()
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{name}: non-finite solution")
+    a_inf = float(torch.zeros(a.rows, dtype=torch.float64, device=x.device)
+                  .index_add_(0, a.row_ids().long(), a.values.double().abs())
+                  .max())
+    res = (b - matvec64(a, x)).abs().amax(0)
+    bwd = float((res / (a_inf * x.abs().amax(0) + b.abs().amax(0))).max())
+    fwd = float(((x - x_true).abs().amax(0) / x_true.abs().amax(0)).max())
+    log(f"  {name}: backward error {bwd:.3e} (limit {BACKWARD_ERR_MAX:g}), "
+        f"forward error {fwd:.3e} (limit {FORWARD_ERR_MAX:g})")
+    if not (bwd <= BACKWARD_ERR_MAX and fwd <= FORWARD_ERR_MAX):
+        raise AssertionError(f"{name}: errors over the limits")
+
+
+def timed(fn):
+    """(result, synchronised host-clock seconds) of ``fn()``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fresh_peak() -> int:
+    """Free what earlier phases left, reset the peak counter; returns the
+    bytes still allocated (the phase's baseline)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def log_peak(name: str, base: int) -> None:
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: peak device memory {peak / 2**30:.3f} GiB, "
+        f"{(peak - base) / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before the set-up")
+
+
+def log_timings(timings: dict) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+
+
+def solve_and_check(solver, a, x_true, b8, label: str) -> None:
+    """Solves with 1 and 8 right-hand sides, three of each timed, the last
+    of each checked."""
+    for name, b in (("1 rhs", b8[:, 0].contiguous()), ("8 rhs", b8)):
+        ms = []
+        for _ in range(3):
+            x, sec = timed(lambda: solver.solve(b))
+            ms.append(sec * 1e3)
+        check_solution(f"{label} solve {name}", a, x, x_true, b)
+        log(f"  {label} solve {name}: " + " / ".join(
+            f"{t:.2f}" for t in ms) + " ms host clock (synchronised)")
+
+
+def serving_path(dev) -> None:
+    """Phase 9: SparseOperator at the default config on the 33³
+    Laplacian."""
+    from basic_sparse_matrix_tpu_torch import CSR, SparseOperator
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    x_true, b8 = seeded_system(a, SEED + 3)
+    b1 = b8[:, 0].contiguous()
+    use_config()
+    op = SparseOperator(a)
+    base = fresh_peak()
+    zero_launches()
+    x1, first = timed(lambda: op.solve(b1))
+    x1b, second = timed(lambda: op.solve(b1))
+    x8, eight = timed(lambda: op.solve(b8))
+    launches = read_launches()
+    solver = op._direct
+    log(f"serving path (SparseOperator, default config): n {n}, kind "
+        f"{solver.kind}, set-up {log_timings(solver.timings)}")
+    log(f"  first solve (with set-up) {first:.3f} s, second solve (cached "
+        f"factor) {second * 1e3:.2f} ms, 8 rhs {eight * 1e3:.2f} ms host "
+        f"clock; launches {launches}")
+    log_peak("serving", base)
+    if solver.kind != "supernodal":
+        raise AssertionError(f"default tier {solver.kind!r}, expected "
+                             f"supernodal")
+    if not all(launches[k] > 0 for k in ("runs_read", "addback_resident",
+                                         "panel_addback")):
+        raise AssertionError("the serving solve did not launch K3-K5")
+    check_solution("op.solve 1 rhs (first)", a, x1, x_true, b8)
+    check_solution("op.solve 1 rhs (cached)", a, x1b, x_true, b8)
+    check_solution("op.solve 8 rhs", a, x8, x_true, b8)
+    before = read_launches()
+    out = op.matmul(b8)
+    after = read_launches()
+    compare(f"op.matmul, 8 columns, vs plain gather/segment (launches "
+            f"K1 {after['spmm_bsr'] - before['spmm_bsr']}, K2 "
+            f"{after['spmm_stream'] - before['spmm_stream']})", out,
+            plain_spmm(a, b8))
+
+
+def banded_tiers(dev) -> None:
+    """Phase 10: the BCR and scan tiers on the 33³ Laplacian under RCM."""
+    from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    x_true, b8 = seeded_system(a, SEED + 4)
+    for backend, kind in (("bcr", "banded-bcr"), ("scan", "banded")):
+        use_config(ordering="rcm", banded_solver=backend)
+        base = fresh_peak()
+        solver, setup = timed(lambda: prepare_direct(a))
+        nb = solver._banded.nb
+        log(f"banded tier, banded_solver={backend!r}: kind {solver.kind}, "
+            f"nb {nb}, {-(-n // nb)} block rows, set-up {setup:.3f} s "
+            f"({log_timings(solver.timings)})")
+        if solver.kind != kind or nb != BANDED_NB:
+            raise AssertionError(f"tier {solver.kind!r} nb {nb}, expected "
+                                 f"{kind!r} with nb {BANDED_NB}")
+        solve_and_check(solver, a, x_true, b8, kind)
+        log_peak(kind, base)
+        del solver
+    use_config()
+
+
+def scatter_tier(dev) -> None:
+    """Phase 11: the scatter-list tier on a 10⁶-node tree Laplacian."""
+    from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
+
+    (n, r, c, v), build = timed(lambda: tree_laplacian(TREE_N, SEED + 5))
+    a, upload = timed(lambda: CSR.from_coo_arrays((n, n), r, c, v,
+                                                  device=dev))
+    x_true, b8 = seeded_system(a, SEED + 6)
+    use_config(ordering="rcm")
+    base = fresh_peak()
+    solver, setup = timed(lambda: prepare_direct(a))
+    s = solver.sched
+    log(f"scatter-list tier: tree Laplacian + I, n {n} (arrays {build:.2f} "
+        f"s, CSR {upload:.2f} s), kind {solver.kind}, set-up {setup:.3f} s "
+        f"({log_timings(solver.timings)})")
+    if solver.kind != "scatter":
+        raise AssertionError(f"tier {solver.kind!r}, expected scatter")
+    per_level = np.diff(s.upd_ptr)
+    jax_bytes = 4 * (3 * s.n_levels * max(int(per_level.max()), 1)
+                     + s.n_levels * int(np.diff(s.col_ptr).max())
+                     * int(np.diff(s.l_col_ptr).max()))
+    log(f"  schedule: nnz_l {s.nnz_l}, {s.n_levels} levels, {s.n_triples} "
+        f"triples, ragged tables {s.nbytes / 2**20:.1f} MiB; the JAX "
+        f"package's padded (levels × max) update and column tables would "
+        f"take {jax_bytes / 2**20:.1f} MiB; solve levels fwd "
+        f"{solver._fwd.n_levels}, bwd {solver._bwd.n_levels}")
+    solve_and_check(solver, a, x_true, b8, "scatter")
+    log_peak("scatter", base)
+    use_config()
+
+
+def iterative_path(dev) -> None:
+    """Phase 12: IC(0)-PCG, Lanczos and Chebyshev on the 33³ Laplacian."""
+    from basic_sparse_matrix_tpu_torch import CSR, SparseOperator
+    from basic_sparse_matrix_tpu_torch.models import chebyshev_solve
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.models.lanczos import (
+        LanczosSetup, _ritz_values)
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b = torch.randn(n, generator=gen, device=dev)
+    use_config()
+    log("iterative and spectral path (33³ Laplacian, natural order):")
+    s, t_an = timed(lambda: sc.analyze(a, incomplete=True))
+    _, t_fa = timed(lambda: sc.factorize(s, a.values))
+    log(f"  IC(0): {s.n_levels} levels, {s.n_triples} triples, analyze "
+        f"{t_an:.3f} s, factorize {t_fa * 1e3:.1f} ms (synchronised)")
+    op = SparseOperator(a)
+    (x, it, res), first = timed(lambda: op.solve_cg(b, tol=1e-6))
+    (x, it, res), again = timed(lambda: op.solve_cg(b, tol=1e-6))
+    true_res = float(torch.linalg.norm(b.double() - matvec64(a, x))
+                     / torch.linalg.norm(b.double()))
+    log(f"  solve_cg: first call (IC(0) set-up included) {first:.3f} s, "
+        f"again {again * 1e3:.1f} ms for {it} iterations = "
+        f"{again * 1e3 / max(it, 1):.2f} ms per iteration; reported "
+        f"residual {res:.3e}, float64 residual {true_res:.3e} (limit "
+        f"{PCG_RES_MAX:g})")
+    if not true_res <= PCG_RES_MAX:
+        raise AssertionError("solve_cg: residual over the limit")
+    ritz, t_lz = timed(lambda: op.eigen_values(32))
+    ritz = ritz.double().cpu().numpy()
+    rel_max = (LAMBDA_MAX - ritz[-1]) / LAMBDA_MAX
+    cond = op.condition_estimate(32)
+    log(f"  eigen_values(32) {t_lz * 1e3:.1f} ms: Ritz max {ritz[-1]:.6f} "
+        f"(analytic {LAMBDA_MAX:.6f}, {rel_max:.3e} below, limit "
+        f"{RITZ_MAX_REL:g}), Ritz min {ritz[0]:.6f} (analytic "
+        f"{LAMBDA_MIN:.6f}); condition_estimate {cond:.2f} (analytic "
+        f"{LAMBDA_MAX / LAMBDA_MIN:.2f})")
+    if not (-1e-5 <= rel_max <= RITZ_MAX_REL
+            and ritz[0] >= LAMBDA_MIN - RITZ_MIN_SLACK):
+        raise AssertionError("eigen_values(32): Ritz values off the "
+                             "spectrum's ends")
+    v0 = np.random.default_rng(SEED + 9).standard_normal(n).astype(
+        np.float32)
+    card = _ritz_values(op._lanczos, torch.as_tensor(v0, device=dev), 32)
+    cpu_setup = LanczosSetup.build(CSR.from_coo_arrays((n, n), r, c, v))
+    cpu = _ritz_values(cpu_setup, torch.as_tensor(v0), 32)
+    compare("Lanczos Ritz values (k = 32, one seeded v0), card vs CPU",
+            card.cpu(), cpu, rtol=RITZ_RTOL, atol_of_max=RITZ_ATOL_OF_MAX)
+    (x, res), t_ch = timed(lambda: chebyshev_solve(
+        a, b, iters=200, bounds=(LAMBDA_MIN, LAMBDA_MAX), setup=op._lanczos))
+    true_res = float(torch.linalg.norm(b.double() - matvec64(a, x))
+                     / torch.linalg.norm(b.double()))
+    log(f"  chebyshev_solve, analytic bounds, 200 iterations: "
+        f"{t_ch * 1e3:.1f} ms, reported residual {res:.3e}, float64 "
+        f"residual {true_res:.3e} (limit {CHEBY_RES_MAX:g})")
+    if not true_res <= CHEBY_RES_MAX:
+        raise AssertionError("chebyshev_solve: residual over the limit")
+    (x, res), t_ch = timed(lambda: op.solve_chebyshev(b, iters=200))
+    log(f"  op.solve_chebyshev, Lanczos bounds, 200 iterations: "
+        f"{t_ch * 1e3:.1f} ms, residual {res:.3e} (not asserted)")
+
+
+def card_vs_cpu_k14(dev) -> None:
+    """Phase 13: the k = 14 tiers and cholesky_auto on the card against the
+    CPU with TF32 switched on by the caller; then TSQR at 2^20 × 64."""
+    from basic_sparse_matrix_tpu_torch import CSR, cholesky_auto, prepare_direct
+    from basic_sparse_matrix_tpu_torch.models import tsqr
+
+    n, r, c, v = laplacian_3d(FORMULATION_K)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    b = torch.randn((n, 8), generator=gen)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for kind, fields in (
+                ("banded-bcr", dict(banded_solver="bcr")),
+                ("banded", dict(banded_solver="scan")),
+                ("scatter", dict(banded_max_block=0, supernodal_relax=0)),
+                ("cholesky_auto", dict())):
+            use_config(ordering="natural", **fields)
+            out, probe = {}, MatmulTf32Probe()
+            for d in ("cpu", dev):
+                a = CSR.from_coo_arrays((n, n), r, c, v, device=d)
+                with probe if d == dev else contextlib.nullcontext():
+                    if kind == "cholesky_auto":
+                        out[d] = {"factor": cholesky_auto(a).todense()}
+                        continue
+                    solver = prepare_direct(a)
+                    x = solver.solve(b.to(d))
+                if solver.kind != kind:
+                    raise AssertionError(f"k={FORMULATION_K}: tier "
+                                         f"{solver.kind!r}, expected {kind!r}")
+                fac = {"banded-bcr": lambda s: s._banded.fac.l0,
+                       "banded": lambda s: s._banded.L,
+                       "scatter": lambda s: s._l.values}[kind](solver)
+                out[d] = {"solution": x, "factor": fac}
+            torch.cuda.synchronize()
+            for name, got in out[dev].items():
+                compare(f"k={FORMULATION_K} {kind} {name}, card vs cpu "
+                        f"({probe.calls} matmul/factor calls on the card, "
+                        f"{probe.tf32} with TF32)", got,
+                        out["cpu"][name].to(dev))
+            if probe.tf32 or (probe.calls == 0 and kind != "scatter"):
+                raise AssertionError(f"{kind}: TF32 was on, or no product "
+                                     f"was seen")
+        use_config()
+        a = torch.randn(TSQR_SHAPE, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 9), device=dev)
+        probe = MatmulTf32Probe()
+        with probe:
+            q, rr = tsqr(a)
+        torch.cuda.synchronize()
+        ad, qd = a.double(), q.double()
+        res = float(torch.linalg.norm(ad - qd @ rr.double())
+                    / torch.linalg.norm(ad))
+        orth = float((qd.T @ qd - torch.eye(
+            a.shape[1], dtype=torch.float64, device=dev)).abs().max())
+        del ad, qd
+        log(f"tsqr {TSQR_SHAPE[0]}x{TSQR_SHAPE[1]}: ‖A − QR‖_F/‖A‖_F "
+            f"{res:.3e} (limit {TSQR_RES_MAX:g}), max|QᵀQ − I| {orth:.3e} "
+            f"(limit {TSQR_ORTH_MAX:g}); {probe.calls} matmul calls, "
+            f"{probe.tf32} with TF32")
+        if not (res <= TSQR_RES_MAX and orth <= TSQR_ORTH_MAX) or probe.tf32:
+            raise AssertionError("tsqr: residual, orthogonality or TF32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+        use_config()
+    ms, plain_ms, four = time_pair(lambda: tsqr(a),
+                                   lambda: torch.linalg.qr(a), 5)
+    log(f"  tsqr {four[1]:.3f} / {four[2]:.3f} ms, torch.linalg.qr "
+        f"{four[0]:.3f} / {four[3]:.3f} ms on the same operand (median of "
+        f"5, qr-tsqr-tsqr-qr)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -762,7 +1161,8 @@ def main() -> None:
                                  device=dev).float())
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del a_dense, b_dense, a_bsr, b_bsr, a_st, b_st, bsr, plan
+    # the rung loops leave a and b bound to the 1M-row operand (≈ 2.8 GiB)
+    del a_dense, b_dense, a_bsr, b_bsr, a_st, b_st, bsr, plan, a, b
     torch.cuda.empty_cache()
 
     # ---- 6. solver main path ------------------------------------------
@@ -781,6 +1181,15 @@ def main() -> None:
     # ---- 8. per-formulation factors, card vs CPU ------------------------
     log(f"per-formulation factors at k={FORMULATION_K}:")
     formulations_on_card(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 9-13. the rest of models/ ---------------------------------------
+    for phase in (serving_path, banded_tiers, scatter_tier, iterative_path,
+                  card_vs_cpu_k14):
+        t0 = time.perf_counter()
+        phase(dev)
+        torch.cuda.empty_cache()
+        log(f"  [{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "

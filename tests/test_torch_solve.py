@@ -13,8 +13,11 @@ CPU.
 * The reference goldens (forward/backward substitution, ``solve`` with
   x = [0.625, -0.1, 2.6999998, 0.5], multi-RHS) through the port's
   ``models/triangular.py`` and ``solve``, ``rtol=1e-5``.
-* The tiers that are not ported raise ``NotImplementedError``; the port
-  runs with ``jax`` blocked.
+* The banded tiers (the 8³ Laplacian under RCM: ``banded-bcr`` and, with
+  ``banded_solver="scan"``, ``banded``) and the scatter-list tier (a
+  diagonal matrix, panels of width 1): the same ``kind`` as the JAX
+  ``DirectSolver`` and the same solution, ``rtol=1e-4`` with
+  ``atol=1e-5·max``; the port runs with ``jax`` blocked.
 """
 
 import dataclasses
@@ -184,28 +187,42 @@ def test_solve_auto_picks_dense_or_sparse(configs):
     np.testing.assert_allclose(P.solve_auto(a, b).numpy(), ref, rtol=1e-4)
 
 
-def test_banded_tier_raises(configs):
-    configs(ordering="rcm")
+@pytest.mark.parametrize("backend,kind", [("bcr", "banded-bcr"),
+                                          ("scan", "banded")])
+def test_banded_tiers_match_jax(configs, backend, kind):
+    """The 8³ Laplacian under RCM takes a banded tier in both packages."""
+    configs(ordering="rcm", banded_solver=backend)
     n, r, c, v = _lap(8, 3)
-    with pytest.raises(NotImplementedError, match="banded"):
-        P.DirectSolver(P.CSR.from_coo_arrays((n, n), r, c, v))
-    # The JAX package picks its banded tier for the same matrix.
-    assert J.DirectSolver(
-        J.CSR.from_coo_arrays((n, n), r, c, v)).kind.startswith("banded")
+    b = np.random.default_rng(8).standard_normal((n, 3)).astype(np.float32)
+    ps = P.DirectSolver(P.CSR.from_coo_arrays((n, n), r, c, v))
+    js = J.DirectSolver(J.CSR.from_coo_arrays((n, n), r, c, v))
+    assert ps.kind == js.kind == kind
+    assert np.array_equal(ps.perm, js.perm)
+    got = ps.solve(b).numpy()
+    want = np.asarray(js.solve(b))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+    ref = np.linalg.solve(_dense(n, r, c, v), b.astype(np.float64))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5 * scale)
+    assert ps.solve(b[:, 0]).shape == (n,)
 
 
-def test_scatter_tier_raises(configs):
-    """A diagonal matrix has panels of width 1: the scatter-list tier, which
-    is not ported (the JAX package takes it)."""
+def test_scatter_tier_matches_jax(configs):
+    """A diagonal matrix has panels of width 1: the scatter-list tier in
+    both packages."""
     configs(ordering="natural", banded_max_block=0)
     d = np.diag(np.arange(1.0, 51.0)).astype(np.float32)
-    a = P.CSR.from_dense(d)
-    assert J.DirectSolver(J.CSR.from_dense(d)).kind == "scatter"
+    b = np.random.default_rng(9).standard_normal((50, 2)).astype(np.float32)
     from basic_sparse_matrix_tpu_torch.models import supernodal as psn
 
+    a = P.CSR.from_dense(d)
     assert psn.supernode_stats(a, relax=8)[0] < 2.0
-    with pytest.raises(NotImplementedError, match="scatter"):
-        P.DirectSolver(a)
+    ps, js = P.DirectSolver(a), J.DirectSolver(J.CSR.from_dense(d))
+    assert ps.kind == js.kind == "scatter"
+    got = ps.solve(b).numpy()
+    np.testing.assert_allclose(got, np.asarray(js.solve(b)), rtol=1e-4,
+                               atol=1e-5 * np.abs(got).max())
+    np.testing.assert_allclose(got, b / np.diag(d)[:, None], rtol=1e-6)
 
 
 def test_reference_goldens_forward_backward():
