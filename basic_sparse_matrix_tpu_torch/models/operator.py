@@ -42,11 +42,11 @@ class SparseOperator:
         return mul_vector(self.a, x)
 
     def matmul_sparse(self, other: CSR) -> CSR:
-        """Sparse × sparse product: needs ``ops/spgemm.py``, which the port
-        does not have yet."""
-        raise NotImplementedError(
-            "SparseOperator.matmul_sparse needs ops/spgemm.py, which is not "
-            "ported yet (ROADMAP.md queue 1 item 3)")
+        """Sparse × sparse product (``spgemm``'s dispatch; the planned path
+        memoises its symbolic plan on the operand)."""
+        from ..ops.spgemm import spgemm
+
+        return spgemm(self.a, other)
 
     __matmul__ = matmul
 

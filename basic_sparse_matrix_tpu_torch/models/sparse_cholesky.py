@@ -169,16 +169,21 @@ def analyze(a: CSR, *, incomplete: bool = False) -> CholeskySchedule:
         nnz_l=int(nnz_l), n=n, l_col_ptr=col_ptr, l_row_idx=csc_rows)
 
 
-def factorize(sched: CholeskySchedule, a_values: torch.Tensor
-              ) -> torch.Tensor:
-    """Numeric phase on ``a_values``' device: L's CSC value array (length
-    ``nnz_l``), a Python loop over the levels."""
-    # One trailing scratch slot, kept zero.
+def initial_lvals(sched: CholeskySchedule,
+                  a_values: torch.Tensor) -> torch.Tensor:
+    """A's lower triangle scattered into L's CSC value array, plus one
+    trailing scratch slot, kept zero."""
     lvals = torch.zeros(sched.nnz_l + 1, dtype=torch.float32,
                         device=a_values.device)
-    lvals.index_add_(0, sched.a_src_pos,
-                     a_values[sched.a_vals_idx].to(torch.float32))
-    for lv in range(sched.n_levels):
+    return lvals.index_add_(0, sched.a_src_pos,
+                            a_values[sched.a_vals_idx].to(torch.float32))
+
+
+def factor_levels(sched: CholeskySchedule, lvals: torch.Tensor, lo: int,
+                  hi: int) -> torch.Tensor:
+    """Apply levels ``lo`` .. ``hi - 1`` to ``lvals`` in place (a Python
+    loop; ``runtime.checkpoint`` snapshots the values between calls)."""
+    for lv in range(lo, hi):
         u0, u1 = sched.upd_ptr[lv], sched.upd_ptr[lv + 1]
         if u1 > u0:
             delta = lvals[sched.upd_a[u0:u1]] * lvals[sched.upd_b[u0:u1]]
@@ -192,7 +197,15 @@ def factorize(sched: CholeskySchedule, a_values: torch.Tensor
             opos = sched.col_off[o0:o1]
             lvals[opos] = lvals[opos] * inv[sched.col_seg[o0:o1]]
     lvals[-1] = 0.0
-    return lvals[:-1]
+    return lvals
+
+
+def factorize(sched: CholeskySchedule, a_values: torch.Tensor
+              ) -> torch.Tensor:
+    """Numeric phase on ``a_values``' device: L's CSC value array (length
+    ``nnz_l``), a Python loop over the levels."""
+    lvals = initial_lvals(sched, a_values)
+    return factor_levels(sched, lvals, 0, sched.n_levels)[:-1]
 
 
 def csc_to_csr_l(sched: CholeskySchedule, lvals) -> CSR:

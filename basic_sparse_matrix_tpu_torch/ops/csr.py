@@ -16,13 +16,26 @@ block fill the BSR dispatch test computed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.errors import IncorrectDimensions, OutOfBounds, check
+from ..utils.errors import (
+    IncorrectDimensions,
+    OutOfBounds,
+    PaddingSizeSmallerThanOriginal,
+    check,
+)
 from ..utils.shapes import DimLike, MatDim
+
+
+class CsrEntry(NamedTuple):
+    """One stored entry, as yielded by iteration (reference ``CsrEntry``)."""
+
+    v: object
+    row_index: int
+    col_index: int
 
 
 # JAX runs with 64-bit types off, so its device arrays hold these 64-bit
@@ -74,6 +87,12 @@ class CSR:
     # grows with nnz, so it is done once).
     _bsr_fill: Optional[float] = dataclasses.field(
         default=None, init=False, repr=False)
+    # Memoised symbolic plans of ops.elementwise (add/sub) and ops.spgemm,
+    # lists of (weakref to the right operand, plan), at most four each.
+    _merge_plans: Optional[list] = dataclasses.field(
+        default=None, init=False, repr=False)
+    _spgemm_plans: Optional[list] = dataclasses.field(
+        default=None, init=False, repr=False)
 
     # ------------------------------------------------------------------ #
     # Static metadata
@@ -101,6 +120,11 @@ class CSR:
 
     def get_nnz(self) -> int:
         return self.stored
+
+    def count_nonzero(self) -> int:
+        """Actual nonzero count (host-side; differs from :meth:`get_nnz`
+        only after capacity-padded ops)."""
+        return int(np.count_nonzero(self.numpy()[2]))
 
     def get_density(self) -> float:
         return self.stored / float(self.rows * self.cols)
@@ -205,10 +229,22 @@ class CSR:
                                    sum_duplicates=False, device=device)
 
     @staticmethod
+    def create_diagonal(contents: Sequence, device=None) -> "CSR":
+        """Diagonal matrix; zero entries dropped (reference
+        ``create_diagonal``)."""
+        if isinstance(contents, torch.Tensor):
+            contents = contents.detach().cpu().numpy()
+        v = np.asarray(contents)
+        n = v.shape[0]
+        return CSR.from_coo_arrays((n, n), np.arange(n), np.arange(n), v,
+                                   device=device)
+
+    @staticmethod
     def empty(dims: DimLike, dtype=np.float32, device=None) -> "CSR":
         d = MatDim.of(dims)
         return CSR.from_host(np.zeros(d.rows + 1, np.int32),
-                             np.zeros(0, np.int32), np.zeros(0, dtype), d,
+                             np.zeros(0, np.int32),
+                             np.zeros(0, numpy_dtype(dtype)), d,
                              device=device)
 
     # ------------------------------------------------------------------ #
@@ -252,6 +288,133 @@ class CSR:
         return CSR.from_coo_arrays(self.dims, rows, indices, values,
                                    device=self.device)
 
+    # ------------------------------------------------------------------ #
+    # Accessors (host-side, from the numpy mirror; reference
+    # ``get_val_at`` .. ``add_padding``). New matrices land on this
+    # matrix's device.
+    # ------------------------------------------------------------------ #
+    def _host_rows(self) -> np.ndarray:
+        return np.repeat(np.arange(self.rows), np.diff(self.numpy()[0]))
+
+    def get_val_at(self, at: DimLike):
+        """Value at (row, col) or ``None``; duplicates of the coordinate
+        are summed."""
+        d = MatDim.of(at)
+        indptr, indices, values = self.numpy()
+        lo, hi = int(indptr[d.rows]), int(indptr[d.rows + 1])
+        hit = np.nonzero(indices[lo:hi] == d.cols)[0]
+        if hit.size == 0:
+            return None
+        return values[lo:hi][hit].sum() if hit.size > 1 else values[lo + hit[0]]
+
+    def with_val_at(self, at: DimLike, value) -> "CSR":
+        """Functional update of one coordinate: an existing entry is
+        replaced, a new coordinate is inserted (host-side rebuild)."""
+        d = MatDim.of(at)
+        check(0 <= d.rows < self.rows and 0 <= d.cols < self.cols,
+              OutOfBounds, f"({d.rows},{d.cols}) outside {self.dims}")
+        indptr, indices, values = self.numpy()
+        lo, hi = int(indptr[d.rows]), int(indptr[d.rows + 1])
+        hit = np.nonzero(indices[lo:hi] == d.cols)[0]
+        rows = self._host_rows()
+        if hit.size:
+            new_vals = values.copy()
+            new_vals[lo + hit[0]] = value
+            return CSR.from_coo_arrays(
+                self.dims, rows, indices, new_vals, sum_duplicates=False,
+                drop_zeros=False, device=self.device)
+        return CSR.from_coo_arrays(
+            self.dims,
+            np.concatenate([rows, [d.rows]]),
+            np.concatenate([indices, [d.cols]]),
+            np.concatenate([values, [value]]),
+            sum_duplicates=False, drop_zeros=False, device=self.device)
+
+    def get_row_compact(self, index: int) -> List[CsrEntry]:
+        """Stored entries of one row."""
+        indptr, indices, values = self.numpy()
+        lo, hi = int(indptr[index]), int(indptr[index + 1])
+        return [
+            CsrEntry(values[k], index, int(indices[k])) for k in range(lo, hi)
+        ]
+
+    def get_row_complete(self, index: int) -> np.ndarray:
+        """Zero-filled full row (host array)."""
+        indptr, indices, values = self.numpy()
+        lo, hi = int(indptr[index]), int(indptr[index + 1])
+        out = np.zeros(self.cols, dtype=values.dtype)
+        np.add.at(out, indices[lo:hi], values[lo:hi])
+        return out
+
+    def get_col_compact(self, index: int) -> List[CsrEntry]:
+        """Stored entries of one column."""
+        _, indices, values = self.numpy()
+        rows = self._host_rows()
+        hit = np.nonzero(indices == index)[0]
+        return [CsrEntry(values[k], int(rows[k]), index) for k in hit]
+
+    def get_col_complete(self, index: int) -> np.ndarray:
+        """Zero-filled full column (host array)."""
+        _, indices, values = self.numpy()
+        rows = self._host_rows()
+        out = np.zeros(self.rows, dtype=values.dtype)
+        hit = indices == index
+        np.add.at(out, rows[hit], values[hit])
+        return out
+
+    def get_col(self, index: int) -> "CSR":
+        """One column as an (rows × 1) CSR."""
+        _, indices, values = self.numpy()
+        rows = self._host_rows()
+        hit = indices == index
+        return CSR.from_coo_arrays(
+            (self.rows, 1), rows[hit], np.zeros(int(hit.sum()), dtype=np.int64),
+            values[hit], sum_duplicates=False, drop_zeros=False,
+            device=self.device)
+
+    def take_submatrix(self, frm: DimLike, to: DimLike) -> "CSR":
+        """Window ``[frm, to)`` (plain half-open slicing)."""
+        f, t = MatDim.of(frm), MatDim.of(to)
+        check(f.cols < t.cols and f.rows < t.rows, IncorrectDimensions,
+              "empty submatrix window")
+        check(t.rows <= self.rows and t.cols <= self.cols, OutOfBounds,
+              "submatrix window exceeds matrix")
+        _, indices, values = self.numpy()
+        rows = self._host_rows()
+        keep = (
+            (rows >= f.rows) & (rows < t.rows)
+            & (indices >= f.cols) & (indices < t.cols)
+        )
+        return CSR.from_coo_arrays(
+            (t.rows - f.rows, t.cols - f.cols),
+            rows[keep] - f.rows, indices[keep] - f.cols, values[keep],
+            sum_duplicates=False, drop_zeros=False, device=self.device)
+
+    def add_padding(self, padded_size: DimLike, at: DimLike) -> "CSR":
+        """Embed into a larger zero matrix at offset ``at``."""
+        p, off = MatDim.of(padded_size), MatDim.of(at)
+        check(self.rows <= p.rows and self.cols <= p.cols,
+              PaddingSizeSmallerThanOriginal,
+              "padded size smaller than matrix")
+        check(
+            p.rows >= self.rows + off.rows and p.cols >= self.cols + off.cols,
+            IncorrectDimensions, "offset pushes matrix outside padded size",
+        )
+        _, indices, values = self.numpy()
+        return CSR.from_coo_arrays(
+            p, self._host_rows() + off.rows, indices + off.cols, values,
+            sum_duplicates=False, drop_zeros=False, device=self.device)
+
+    def __iter__(self) -> Iterator[CsrEntry]:
+        _, indices, values = self.numpy()
+        rows = self._host_rows()
+        for k in range(values.shape[0]):
+            yield CsrEntry(values[k], int(rows[k]), int(indices[k]))
+
+    # ------------------------------------------------------------------ #
+    # Operator sugar (delegates to the ops modules, imported lazily to
+    # avoid cycles)
+    # ------------------------------------------------------------------ #
     def transpose(self) -> "CSR":
         """The transposed matrix, computed on this matrix's device."""
         from .transpose import transpose as _transpose
@@ -262,10 +425,17 @@ class CSR:
     def T(self) -> "CSR":
         return self.transpose()
 
-    # ------------------------------------------------------------------ #
+    def pair_with_transpose(self) -> Tuple["CSR", "CSR"]:
+        """Reference ``pair_with_tranpose`` [sic]."""
+        return self, self.transpose()
+
     def __matmul__(self, other):
-        """``A @ B`` for a dense right-hand side: a vector goes to ``spmv``,
-        a matrix to the gather/segment ``spmm``, as in the JAX package."""
+        """``A @ B``: a CSR right-hand side goes to ``spgemm``, a vector
+        to ``spmv``, a dense matrix to the gather/segment ``spmm``."""
+        if isinstance(other, CSR):
+            from .spgemm import spgemm
+
+            return spgemm(self, other)
         from .spmm import spmm, spmv
 
         if not isinstance(other, torch.Tensor):
@@ -274,11 +444,75 @@ class CSR:
             return spmv(self, other)
         return spmm(self, other)
 
+    def __add__(self, other: "CSR") -> "CSR":
+        from . import elementwise as _e
+
+        return _e.add(self, other)
+
+    def __sub__(self, other: "CSR") -> "CSR":
+        from . import elementwise as _e
+
+        return _e.sub(self, other)
+
+    def __mul__(self, scalar) -> "CSR":
+        from . import elementwise as _e
+
+        return _e.mul_scalar(self, scalar)
+
+    __rmul__ = __mul__
+
+    def sum_elements(self) -> torch.Tensor:
+        from . import elementwise as _e
+
+        return _e.sum_elements(self)
+
+    def l2_norm(self) -> torch.Tensor:
+        from . import elementwise as _e
+
+        return _e.l2_norm(self)
+
+    # ------------------------------------------------------------------ #
+    # Display (reference Display/Debug impls)
+    # ------------------------------------------------------------------ #
     def __repr__(self) -> str:
         return (
             f"CSR(dims: {self.dims}, stored: {self.stored}, "
             f"dtype: {self.dtype}, device: {self.device})"
         )
+
+    def __str__(self) -> str:
+        dense = self.todense().cpu().numpy()
+        return "\n".join(
+            "|" + " ".join(f"{v:>5}" for v in row) + " |" for row in dense
+        )
+
+    def debug_str(self) -> str:
+        """Raw-array dump mirroring the reference ``Debug`` impl."""
+        indptr, indices, values = self.numpy()
+        return (
+            f"dims:      {self.dims}\n"
+            f"v:         {values.tolist()}\n"
+            f"col_index: {indices.tolist()}\n"
+            f"row_index: {indptr.tolist()}\n"
+        )
+
+    def allclose(self, other: "CSR", rtol=1e-5, atol=1e-6) -> bool:
+        """Value-level equality (densified comparison on the host)."""
+        if self.shape != other.shape:
+            return False
+        return bool(
+            np.allclose(
+                self.todense().cpu().numpy(), other.todense().cpu().numpy(),
+                rtol=rtol, atol=atol,
+            )
+        )
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a torch (or numpy) dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -29,7 +29,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spmm_bsr.cu", "spmm_stream.cu", "runs_read.cu", "addback.cu")
+SOURCES = ("spmm_bsr.cu", "spmm_stream.cu", "runs_read.cu", "addback.cu",
+           "entry_fma.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "bsm_runs_read": [_P, _LL, _P, _I, _I, _P, _P],
     # lvals, n, rows, starts, nslots, len, stream
     "bsm_addback": [_P, _LL, _P, _P, _I, _I, _P],
+    # ii, kk, vv, B, C, entries, rows, lanes, vec, stream
+    "bsm_entry_fma": [_P] * 5 + [_LL, _I, _I, _I, _P],
 }
 
 

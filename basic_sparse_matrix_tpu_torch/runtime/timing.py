@@ -4,7 +4,8 @@ Counterpart of ``basic_sparse_matrix_tpu/runtime/timing.py``, whose
 two-point, fetch-fenced loop works around a remote TPU transport. On a
 local GPU, CUDA events time the device directly: warm up, then record an
 event pair around each of ``iters`` launches, synchronise, and take the
-median of the per-launch times.
+median of the per-launch times. :class:`CudaTimer` times one enclosed region
+the same way (``runtime/profiling.py``'s ``timed`` uses it).
 """
 
 from __future__ import annotations
@@ -35,3 +36,28 @@ def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+class CudaTimer:
+    """Context manager: device milliseconds between entry and exit on the
+    current CUDA stream of ``device``, by an event pair; ``ms`` is set on
+    exit, which waits for the end event."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self.ms = 0.0
+
+    def __enter__(self) -> "CudaTimer":
+        import torch
+
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._start.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch
+
+        self._end.record(torch.cuda.current_stream(self.device))
+        self._end.synchronize()
+        self.ms = self._start.elapsed_time(self._end)

@@ -27,9 +27,13 @@ Fields the port accepts but does not act on, because they select between
 formulations of one function that only mattered to XLA on the TPU:
 ``ell_gather_bf16``, ``ell_stream_unroll``, ``bsr_block_rows``,
 ``bsr_block_cols``, ``rhs_tile``, and ``supernodal_groups_per_program``
-(it bounds the size of XLA programs; PyTorch runs eagerly). The JAX
-package reads ``solve_dtype`` nowhere; ``merge_numeric`` and
-``spgemm_numeric`` wait for their modules.
+(it bounds the size of XLA programs; PyTorch runs eagerly),
+``merge_numeric`` ("chunked" | "planned") and ``spgemm_numeric`` ("planned"
+| "chunked" | "rowgather" | "mergetree" | "auto"): the chunked, row-gather
+and merge-tree variants group scalar gathers for XLA, and the port runs
+the one planned formulation of each (``ops/elementwise.py``,
+``ops/spgemm.py``) for every value. The JAX package reads ``solve_dtype``
+nowhere.
 """
 
 from __future__ import annotations

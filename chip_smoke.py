@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: CSR × dense
 SpMM (``mul_dense``), the sparse direct solver (``prepare_direct`` →
-supernodal Cholesky → level-scheduled triangular solves), and the rest of
+supernodal Cholesky → level-scheduled triangular solves), the rest of
 ``models/`` through the serving wrapper ``SparseOperator``: every
 ``DirectSolver`` tier (supernodal, banded scan, BCR, scatter-list), IC(0)-PCG,
-Lanczos, Chebyshev, dense Cholesky and TSQR.
+Lanczos, Chebyshev, dense Cholesky and TSQR; and the sparse × sparse algebra
+(``a + b``, ``a - b``, ``a * s``, ``spgemm``, ``matmul_sparse``), the file
+round trips and the per-entry FMA probe (K6).
 
 Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
@@ -13,9 +15,10 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. Device: the card's name and ``nvidia-smi``'s name and power limit.
-2. Build: the K1 (BSR), K2 (streaming), K3 (run reads) and K4/K5
-   (add-back) kernels from ``basic_sparse_matrix_tpu_torch/csrc`` with
-   nvcc, one process per source, timed; the ptxas register/spill lines.
+2. Build: the K1 (BSR), K2 (streaming), K3 (run reads), K4/K5
+   (add-back) and K6 (per-entry FMA) kernels from
+   ``basic_sparse_matrix_tpu_torch/csrc`` with nvcc, one process per
+   source, timed; the ptxas register/spill lines.
 3. Kernel vs plain: each kernel and its plain PyTorch version on the card
    at the main path's shapes: max abs/rel error and CUDA-event times. K1
    also at the other two ``pick_tiles`` shapes, (256, 512) and (8, 128),
@@ -91,6 +94,40 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     1,048,576 × 64 (``‖A − QR‖_F/‖A‖_F <= 1e-5``, ``max|QᵀQ − I| <=
     1e-4`` in float64) timed beside ``torch.linalg.qr`` on the same
     operand.
+14. ss_add: 1000², two operands of 900,000 inserts each (≈ 593k stored):
+    ``a + b``, ``a - b``, ``a * 3`` against the dense sums on the card;
+    the first call (host plan) and the cached call timed apart; then
+    ``(a + b) - b``, whose left operand is capacity padded, through the
+    key-space fallback.
+15. ss_mul, masked-dense: 1000², 500,000 inserts each: ``spgemm(a, b)``
+    against ``a.todense() @ b.todense()`` in float64 on the card.
+16. ss_mul, planned: n = 100,000 with 500,000 inserts each (past the dense
+    budget, so ``spgemm`` takes ``spgemm_planned``), and the long-row case
+    (A 200,000 inserts, B 64 entries a row). Sampled columns of C against
+    the plain gather/segment sum of A with those columns of B; nnz(C) and
+    the whole pattern against a host Gustavson product (scipy's SpGEMM on
+    all-ones operands). Plan seconds, numeric ms, expansion, nnz(C), peak
+    memory.
+17. ``SparseOperator.matmul_sparse`` on the 33³ Laplacian (A·A, 25 entries
+    a row inside) against ``op.matmul`` of densified columns of A; and
+    ``write_matrix_market`` → ``read_matrix_market`` of that matrix through
+    a temporary directory, entry for entry. (``save_direct`` →
+    ``load_direct`` → solve runs in phase 10, on each banded solver, under
+    the same error limits.)
+18. K6: ``entry_fma`` against ``entry_fma_reference`` at the probe's default
+    shape (8192 entries, 4096 rows, 128 lanes), at 512 lanes and with every
+    entry in one row (max abs error < 1e-4 of the larger of 1 and
+    max|ref|); kernel, plain and ``torch.sparse.mm`` (COO) times; then the
+    probe (``probes/entry_fma_probe.py``), K6's main path: ns per entry
+    beside K2's on the same entries, and beside K2's at its own shape from
+    phase 3. The launch counter is set to 0 right before the probe and read
+    right after.
+
+Every kernel's line also carries ``bound_ms``, the least time the card
+could take: the larger of the bytes the function must move (each input read
+once, each output written once; for data-dependent work what this run's data
+needs) over 3.35 TB/s and its float32 operations over 67 TFLOP/s (NVIDIA's
+H100 SXM data sheet), and which of the two it is.
 
 Tolerance on the card: float32 summed in another order than the plain
 version, so ``|out - ref| <= 1e-4 * |ref| + 1e-4 * max|ref|``; the run
@@ -106,7 +143,9 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -291,6 +330,43 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor, *,
     return max_abs
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s and
+# float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """The least milliseconds the card could take for this work and which
+    of the two limits it is."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def library_time(name: str, make, ref: torch.Tensor, iters: int):
+    """Milliseconds of one PyTorch call that computes the same function
+    (``make()`` returns the call), or None with the reason logged where
+    PyTorch refuses the operand. A yardstick only: nothing in the port
+    calls it. Its result is held to ``ref`` like a kernel's."""
+    from basic_sparse_matrix_tpu_torch.runtime.timing import cuda_time_ms
+
+    try:
+        call = make()
+        out = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, ValueError) as err:
+        log(f"  {name}: PyTorch refuses this operand: "
+            f"{str(err).splitlines()[0][:200]}")
+        return None
+    compare(f"{name} vs the kernel's output", out[: ref.shape[0]], ref)
+    del out
+    ms = cuda_time_ms(call, warmup=1, iters=iters)
+    log(f"  {name}: {ms:.4f} ms (median of {iters})")
+    return ms
+
+
 # ---- the direct solver ----------------------------------------------------
 SOLVER_K = 33        # 33³ Laplacian, n = 35,937
 FORMULATION_K = 14   # 14³ Laplacian, n = 2744
@@ -315,6 +391,7 @@ def laplacian_3d(k: int):
 
 def kernel_modules():
     from basic_sparse_matrix_tpu_torch.ops.pallas import addback_resident
+    from basic_sparse_matrix_tpu_torch.ops.pallas import entry_fma
     from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback
     from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read
     from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel
@@ -322,7 +399,7 @@ def kernel_modules():
 
     return {"spmm_bsr": spmm_kernel, "spmm_stream": stream_kernel,
             "runs_read": runs_read, "addback_resident": addback_resident,
-            "panel_addback": panel_addback}
+            "panel_addback": panel_addback, "entry_fma": entry_fma}
 
 
 def zero_launches() -> None:
@@ -520,9 +597,17 @@ def solver_kernels_vs_plain(solver, gen) -> list:
     log(f"  runs_read: kernel {four[1]:.4f} / {four[2]:.4f} ms, plain "
         f"{four[0]:.4f} / {four[3]:.4f} ms; {moved / ms / 1e6:.1f} GB/s by "
         f"2·runs·l_pad·4 bytes")
-    out.append(("runs_read", "basic_sparse_matrix_tpu_torch/csrc/runs_read.cu",
-                "basic_sparse_matrix_tpu/ops/pallas/runs_read.py:98",
-                0.0, ms, plain_ms))
+    n_live = int((stf >= 0).sum())
+    # stf read, the live runs read (at most all of lvals), the output
+    # written; no arithmetic
+    out.append({"name": "runs_read",
+                "source": "basic_sparse_matrix_tpu_torch/csrc/runs_read.cu",
+                "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
+                            "runs_read.py:98",
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                **bound(4 * (stf.numel() + min(n_live * lp, lvals.numel())
+                             + stf.numel() * lp), 0.0),
+                "library_ms": None})
 
     # K4 and K5: the add-back operands of one group each, level 0.
     def targets(gi):
@@ -576,8 +661,16 @@ def solver_kernels_vs_plain(solver, gen) -> list:
         log(f"  {name}: kernel {four[1]:.4f} / {four[2]:.4f} ms, plain "
             f"{four[0]:.4f} / {four[3]:.4f} ms; {nz} nonzero row elements, "
             f"{nz / ms / 1e6:.1f} G atomic adds/s, rows {args[0].numel() * 4 / 2**20:.1f} MiB")
-        out.append((name, "basic_sparse_matrix_tpu_torch/csrc/addback.cu",
-                    replaces, err, ms, plain_ms))
+        # rows and starts read, the touched factor values read and written
+        # (at most all of lvals), one add per nonzero row element
+        touched = min(nz, lvals.numel())
+        out.append({"name": name,
+                    "source": "basic_sparse_matrix_tpu_torch/csrc/addback.cu",
+                    "replaces": replaces, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms,
+                    **bound(4 * (args[0].numel() + args[1].numel()
+                                 + 2 * touched), float(nz)),
+                    "library_ms": None})
     return out
 
 
@@ -814,6 +907,27 @@ def serving_path(dev) -> None:
             plain_spmm(a, b8))
 
 
+def direct_round_trip(solver, a, x_true, b8, kind: str) -> None:
+    """save_direct → load_direct → solve through a temporary directory;
+    the loaded solver meets the same error limits and agrees with the one
+    it was saved from."""
+    from basic_sparse_matrix_tpu_torch.runtime import checkpoint as ck
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "direct.npz")
+        _, saved = timed(lambda: ck.save_direct(path, solver))
+        loaded, took = timed(lambda: ck.load_direct(path, device=a.device))
+        size = os.path.getsize(path)
+    x = loaded.solve(b8)
+    log(f"  {kind} save_direct {size / 2**20:.1f} MiB in {saved:.2f} s, "
+        f"load_direct (factor rebuilt where the checkpoint holds operands) "
+        f"{took:.2f} s, kind {loaded.kind}")
+    if loaded.kind != kind:
+        raise AssertionError(f"loaded kind {loaded.kind!r}, saved {kind!r}")
+    check_solution(f"{kind} loaded solver, 8 rhs", a, x, x_true, b8)
+    compare(f"{kind} loaded solver vs the saved one", x, solver.solve(b8))
+
+
 def banded_tiers(dev) -> None:
     """Phase 10: the BCR and scan tiers on the 33³ Laplacian under RCM."""
     from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
@@ -834,6 +948,7 @@ def banded_tiers(dev) -> None:
                                  f"{kind!r} with nb {BANDED_NB}")
         solve_and_check(solver, a, x_true, b8, kind)
         log_peak(kind, base)
+        direct_round_trip(solver, a, x_true, b8, kind)
         del solver
     use_config()
 
@@ -1005,6 +1120,312 @@ def card_vs_cpu_k14(dev) -> None:
         f"5, qr-tsqr-tsqr-qr)")
 
 
+# ---- the sparse × sparse path, file round trips and K6 (phases 14-18) -------
+SS_N = 1000              # the reference ss_add / ss_mul operand order
+SS_ADD_INSERTS = 900_000
+SS_MUL_INSERTS = 500_000
+PLANNED_N = 100_000
+K6_MAX_ABS_ERR = 1e-4
+
+
+def bench_csr(seed: int, n: int, inserts: int, dev):
+    """A reference-bench operand: ``inserts`` random coordinates in n × n,
+    values 1..255, duplicates summed."""
+    from basic_sparse_matrix_tpu_torch import CSR
+
+    r = np.random.default_rng(seed)
+    return CSR.from_coo_arrays(
+        (n, n), r.integers(0, n, inserts), r.integers(0, n, inserts),
+        (r.integers(0, 2**32, inserts) % 255 + 1).astype(np.float32),
+        device=dev)
+
+
+def dense64(a) -> torch.Tensor:
+    """``a`` densified in float64 on its device."""
+    out = torch.zeros(a.rows * a.cols, dtype=torch.float64, device=a.device)
+    out.index_add_(0, a.row_ids().long() * a.cols + a.indices.long(),
+                   a.values.double())
+    return out.view(a.rows, a.cols)
+
+
+def k6_on_stream_entries(plan, b, out_k2, k2_ns: float) -> None:
+    """K6 on the streaming kernel's own entries (phase 3): the same
+    function as K2 at K2's shape, held to K2's output and timed."""
+    from basic_sparse_matrix_tpu_torch.ops.pallas import entry_fma as k6
+    from basic_sparse_matrix_tpu_torch.runtime.timing import cuda_time_ms
+
+    if plan.n_kt != 1:
+        log("  entry_fma on the stream plan's entries: skipped, the plan "
+            "has more than one k tile")
+        return
+    base = torch.arange(plan.n_rt, device=b.device, dtype=torch.int32) \
+        * plan.tile_m
+    ii = (plan.ii[:, 0, :] + base[:, None]).reshape(-1).contiguous()
+    kk = plan.kk.reshape(-1)
+    vv = plan.vv.reshape(-1)
+    out = k6.entry_fma(ii, kk, vv, b, plan.rows)
+    torch.cuda.synchronize()
+    compare("entry_fma on the stream plan's entries vs spmm_stream", out,
+            out_k2)
+    del out
+    ms = cuda_time_ms(lambda: k6.entry_fma(ii, kk, vv, b, plan.rows,
+                                           check_range=False),
+                      warmup=1, iters=3)
+    log(f"  entry_fma on the stream plan's {ii.numel()} slots ({plan.nnz} "
+        f"entries), {plan.rows} rows x {b.shape[1]} lanes: {ms:.3f} ms = "
+        f"{ms * 1e6 / plan.nnz:.3f} ns per entry; spmm_stream "
+        f"{k2_ns:.3f} ns per entry")
+
+
+def ss_add_path(dev) -> None:
+    """Phase 14: a + b, a - b, a * 3 at the reference ss_add size."""
+    from basic_sparse_matrix_tpu_torch.ops import elementwise as ew
+
+    a = bench_csr(1000, SS_N, SS_ADD_INSERTS, dev)
+    b = bench_csr(2000, SS_N, SS_ADD_INSERTS, dev)
+    da, db = dense64(a), dense64(b)
+    base = fresh_peak()
+    c, first = timed(lambda: a + b)
+    c2, cached = timed(lambda: a + b)
+    d, sub_cached = timed(lambda: a - b)
+    e, scale = timed(lambda: a * 3)
+    log(f"ss_add ({SS_N}x{SS_N}, {SS_ADD_INSERTS} inserts each, stored "
+        f"{a.stored} and {b.stored}): a + b first call (host plan) "
+        f"{first:.3f} s, cached {cached * 1e3:.3f} ms; a - b (same plan) "
+        f"{sub_cached * 1e3:.3f} ms; a * 3 {scale * 1e3:.3f} ms; output "
+        f"capacity {c.stored}, nonzero {int((c.values != 0).sum())}")
+    if len(a._merge_plans) != 1 or c2.indices is not c.indices:
+        raise AssertionError("ss_add: the second call built a plan")
+    compare("a + b vs dense sum", dense64(c), da + db)
+    compare("a - b vs dense difference", dense64(d), da - db)
+    compare("a * 3 vs dense", dense64(e), 3 * da)
+    # (a + b) stores its padding slots at one coordinate: the plan refuses
+    # and the key-space merge takes over
+    f, fallback = timed(lambda: c - b)
+    if c._merge_plans:
+        raise AssertionError("ss_add: a capacity-padded operand was planned")
+    compare("(a + b) - b vs a (key-space fallback)", dense64(f), da)
+    log(f"  (a + b) - b through the key-space merge: {fallback * 1e3:.3f} "
+        f"ms; sum_elements {float(ew.sum_elements(c)):.6g} (dense "
+        f"{float((da + db).sum()):.6g}), l2_norm {float(ew.l2_norm(a)):.6g} "
+        f"(dense {float(da.square().sum().sqrt()):.6g})")
+    log_peak("ss_add", base)
+
+
+def ss_mul_dense_path(dev) -> None:
+    """Phase 15: spgemm on the masked-dense rung at the reference size."""
+    from basic_sparse_matrix_tpu_torch import spgemm
+
+    a = bench_csr(3000, SS_N, SS_MUL_INSERTS, dev)
+    b = bench_csr(4000, SS_N, SS_MUL_INSERTS, dev)
+    c, first = timed(lambda: spgemm(a, b))
+    c, again = timed(lambda: spgemm(a, b))
+    log(f"ss_mul masked-dense ({SS_N}x{SS_N}, {SS_MUL_INSERTS} inserts each, "
+        f"stored {a.stored} and {b.stored}): spgemm first {first * 1e3:.2f} "
+        f"ms, again {again * 1e3:.2f} ms (dense product, then the host "
+        f"re-sparsifies); nnz(C) {c.stored}")
+    if a._spgemm_plans:
+        raise AssertionError("ss_mul 1000²: took the planned path")
+    compare("spgemm vs a.todense() @ b.todense() in float64",
+            dense64(c), dense64(a) @ dense64(b))
+
+
+def check_product_pattern(name: str, a, b, c) -> None:
+    """nnz(C) and C's whole pattern against a host Gustavson pass: scipy's
+    SpGEMM on all-ones operands (no cancellation)."""
+    import scipy.sparse as sp
+
+    ia, xa, _ = a.numpy()
+    ib, xb, _ = b.numpy()
+    ic, xc, _ = c.numpy()
+    pc = sp.csr_matrix((np.ones(xa.size), xa, ia), shape=a.shape) \
+        @ sp.csr_matrix((np.ones(xb.size), xb, ib), shape=b.shape)
+    pc.sort_indices()
+    if not (np.array_equal(pc.indptr, ic) and np.array_equal(pc.indices, xc)):
+        raise AssertionError(f"{name}: pattern differs from the host "
+                             f"Gustavson product")
+    log(f"  {name}: nnz(C) {xc.size} and the whole pattern equal the host "
+        f"Gustavson product (scipy)")
+
+
+def sampled_columns(m, cols: np.ndarray) -> torch.Tensor:
+    """The dense (rows, len(cols)) slice ``m[:, cols]`` on ``m``'s device."""
+    slot = torch.full((m.cols,), -1, dtype=torch.long, device=m.device)
+    slot[torch.as_tensor(cols, device=m.device)] = torch.arange(
+        len(cols), device=m.device)
+    where = slot[m.indices.long()]
+    keep = where >= 0
+    out = torch.zeros((m.rows, len(cols)), dtype=torch.float32,
+                      device=m.device)
+    out.index_put_((m.row_ids().long()[keep], where[keep]),
+                   m.values[keep].float(), accumulate=True)
+    return out
+
+
+def planned_case(name: str, a, b, entry) -> None:
+    """One planned product through ``entry(a, b)``: plan and numeric times,
+    sampled columns against the plain SpMM, the pattern against the host."""
+    from basic_sparse_matrix_tpu_torch.ops.spgemm import (
+        _plan_numeric, _SpgemmPlan)
+    from basic_sparse_matrix_tpu_torch.runtime.timing import cuda_time_ms
+
+    base = fresh_peak()
+    c, first = timed(lambda: entry(a, b))
+    c, again = timed(lambda: entry(a, b))
+    if not a._spgemm_plans or len(a._spgemm_plans) != 1:
+        raise AssertionError(f"{name}: did not take the planned path once")
+    plan = a._spgemm_plans[0][1]
+    if not isinstance(plan, _SpgemmPlan):
+        raise AssertionError(f"{name}: expected one plan, not row chunks")
+    ms = cuda_time_ms(lambda: _plan_numeric(plan, a.values, b.values),
+                      warmup=1, iters=5)
+    log(f"{name}: stored {a.stored} x {b.stored}, first call (host plan) "
+        f"{first:.3f} s, cached call {again * 1e3:.3f} ms, numeric phase "
+        f"{ms:.4f} ms (CUDA events, median of 5), expansion "
+        f"{plan.expansion}, nnz(C) {plan.nnz_c}")
+    log_peak(name, base)
+    cols = np.sort(np.random.default_rng(SEED + 10).choice(b.cols, 16, False))
+    compare(f"{name}: 16 sampled columns of C vs plain SpMM of A with "
+            f"those columns of B", sampled_columns(c, cols),
+            plain_spmm(a, sampled_columns(b, cols)))
+    check_product_pattern(name, a, b, c)
+
+
+def ss_mul_planned_path(dev) -> None:
+    """Phase 16: spgemm past the dense budget, short and long rows."""
+    from basic_sparse_matrix_tpu_torch import CSR, spgemm
+
+    n = PLANNED_N
+    planned_case(f"ss_mul planned (n {n}, {SS_MUL_INSERTS} inserts each)",
+                 bench_csr(5000, n, SS_MUL_INSERTS, dev),
+                 bench_csr(6000, n, SS_MUL_INSERTS, dev), spgemm)
+    rng = np.random.default_rng(7000)
+    ra, ca = rng.integers(0, n, 200_000), rng.integers(0, n, 200_000)
+    va = (rng.integers(0, 2**32, 200_000) % 255 + 1).astype(np.float32)
+    rb = np.repeat(np.arange(n), 64)
+    cb = rng.integers(0, n, 64 * n)
+    vb = (rng.integers(0, 2**32, 64 * n) % 255 + 1).astype(np.float32)
+    planned_case(f"ss_mul planned, long rows (n {n}, A 200000 inserts, B 64 "
+                 f"a row)",
+                 CSR.from_coo_arrays((n, n), ra, ca, va, device=dev),
+                 CSR.from_coo_arrays((n, n), rb, cb, vb, device=dev), spgemm)
+
+
+def matmul_sparse_path(dev) -> None:
+    """Phase 17: SparseOperator.matmul_sparse on the 33³ Laplacian, and the
+    Matrix Market round trip of that matrix."""
+    from basic_sparse_matrix_tpu_torch import CSR, SparseOperator
+    from basic_sparse_matrix_tpu_torch.runtime import io as mm
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    op = SparseOperator(a)
+    planned_case(f"matmul_sparse (33³ Laplacian, A·A, n {n})", a, a,
+                 lambda x, y: op.matmul_sparse(y))
+    aa = op.matmul_sparse(a)
+    per_row = np.diff(aa.numpy()[0])
+    inner = (SOLVER_K // 2 * SOLVER_K + SOLVER_K // 2) * SOLVER_K \
+        + SOLVER_K // 2
+    if per_row[inner] != 25 or per_row.max() != 25:
+        raise AssertionError(f"A·A: {per_row[inner]} entries in an inner "
+                             f"row, most {per_row.max()}, expected 25")
+    cols = np.arange(inner - 4, inner + 4)
+    compare("matmul_sparse(A)[:, slice] vs op.matmul(A[:, slice] dense)",
+            sampled_columns(aa, cols), op.matmul(sampled_columns(a, cols)))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("laplacian.mtx", "laplacian.mtx.gz"):
+            path = os.path.join(tmp, name)
+            _, wrote = timed(lambda: mm.write_matrix_market(path, a, "33^3"))
+            back, read = timed(lambda: mm.read_matrix_market(path, device=dev))
+            size = os.path.getsize(path)
+            same = all(torch.equal(x, y) for x, y in (
+                (back.indptr, a.indptr), (back.indices, a.indices),
+                (back.values, a.values)))
+            log(f"  {name}: wrote {size} bytes in {wrote:.2f} s, read in "
+                f"{read:.2f} s, entry for entry equal: {same}")
+            if not same or back.shape != a.shape:
+                raise AssertionError(f"{name}: round trip differs")
+
+
+def k6_phase(dev, k2_main: float) -> dict:
+    """Phase 18: K6 against its plain version at three shapes, its times,
+    the library call, and the probe (K6's main path). ``k2_main`` is the
+    streaming kernel's ns per entry at its own shape (phase 3)."""
+    from basic_sparse_matrix_tpu_torch.ops.pallas import entry_fma as k6
+    from basic_sparse_matrix_tpu_torch.probes import entry_fma_probe as probe
+
+    log("entry_fma (K6) vs plain on the card:")
+    entries, rows = 8192, 4096
+    worst = 0.0
+    timing = {}
+    for label, lanes, hot in (("default shape", 128, None),
+                              ("512 lanes", 512, None),
+                              ("one hot row", 128, 17)):
+        ii_h, kk_h, vv_h, b_h = probe.make_entries(entries, rows, lanes)
+        if hot is not None:
+            ii_h[:] = hot
+        ii, kk, vv, b = (torch.as_tensor(x, device=dev)
+                         for x in (ii_h, kk_h, vv_h, b_h))
+        out = k6.entry_fma(ii, kk, vv, b, rows)
+        torch.cuda.synchronize()
+        ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
+        err = float((out - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1.0)
+        err64 = float(np.abs(out.double().cpu().numpy()
+                             - probe.oracle(ii_h, kk_h, vv_h, b_h, rows)).max())
+        ms, plain_ms, four = time_pair(
+            lambda: k6.entry_fma(ii, kk, vv, b, rows, check_range=False),
+            lambda: k6.entry_fma_reference(ii, kk, vv, b, rows), 50)
+        log(f"  entry_fma, {label} (E {entries}, R {rows}, lanes {lanes}): "
+            f"max abs err vs plain {err:.3e}, vs float64 {err64:.3e} (limit "
+            f"{K6_MAX_ABS_ERR:g} x {scale:.3g}); kernel {four[1]:.4f} / "
+            f"{four[2]:.4f} ms, plain {four[0]:.4f} / {four[3]:.4f} ms "
+            f"(median of 50, plain-kernel-kernel-plain, one call per event "
+            f"pair at the host's pace)")
+        if not (err < K6_MAX_ABS_ERR * scale
+                and err64 < K6_MAX_ABS_ERR * scale):
+            raise AssertionError(f"entry_fma {label}: error over the limit")
+        worst = max(worst, err / scale)
+        if hot is None and lanes == 128:
+            def coo_library():
+                t = torch.sparse_coo_tensor(
+                    torch.stack([ii.long(), kk.long()]), vv,
+                    (rows, rows)).coalesce()
+                return lambda: torch.sparse.mm(t, b)
+            lib_ms = library_time("torch.sparse.mm(sparse_coo_tensor of the "
+                                  "entries, B)", coo_library, out, 50)
+            # the entries and B read once, C written once; one
+            # multiply-add per entry and lane
+            timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      **bound(12 * entries + 8 * rows * lanes,
+                              2.0 * entries * lanes),
+                      "library_ms": lib_ms}
+    # the probe is K6's main path: counts set to 0 right before, read after
+    zero_launches()
+    reports = [probe.measure(entries, rows, lanes, dev)
+               for lanes in probe.DEFAULT_LANES]
+    launches = read_launches()
+    for rep in reports:
+        log(f"  probe, lanes {rep['lanes']}: entry_fma {rep['value']:.3f} ns "
+            f"per entry (kernel {rep['kernel_ms'] * 1e3:.2f} us with the "
+            f"stream kept busy, {rep['call_ms'] * 1e3:.2f} us a call at the "
+            f"host's pace); spmm_stream on the same entries "
+            f"{rep['stream_kernel_ns']:.3f} ns per entry (kernel "
+            f"{rep['stream_kernel_ms'] * 1e3:.2f} us, "
+            f"{rep['stream_call_ms'] * 1e3:.2f} us a call; tile_m "
+            f"{rep['stream_tile_m']}, cellmax {rep['stream_cellmax']}); "
+            f"verdict: {rep['verdict']}. spmm_stream at its own shape "
+            f"(phase 3): {k2_main:.3f} ns per entry")
+        log("  " + json.dumps(rep))
+    if launches["entry_fma"] < 1 or launches["spmm_stream"] < 1:
+        raise AssertionError(f"the probe did not launch K6 and K2: "
+                             f"{launches}")
+    return {"name": "entry_fma", "route": "cuda",
+            "source": "basic_sparse_matrix_tpu_torch/csrc/entry_fma.cu",
+            "replaces": "benchmarks/entry_fma_probe.py:67",
+            "launches": launches["entry_fma"], **timing}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -1067,12 +1488,28 @@ def main() -> None:
         log(f"  spmm_bsr launch config for bm {bm}: "
             f"{k1.kernel_config(bm)}")
     err, ms, plain_ms = k1_vs_plain(bsr, b_bsr, "(64, 256) rung", 10)
+
+    def bsr_library():
+        t = torch.sparse_bsr_tensor(
+            bsr.brow_ptr.long(), bsr.block_cols.long(), bsr.blocks,
+            size=(bsr.padded_rows, bsr.padded_cols))
+        return lambda: torch.sparse.mm(t, b_bsr)
+    lib_ms = library_time("torch.sparse.mm(sparse_bsr_tensor (64, 256), B)",
+                          bsr_library, k1.spmm_bsr(bsr, b_bsr), 10)
+    n_out = int(b_bsr.shape[1])
+    # the live blocks, B and the index lists read once, C written once;
+    # 2·bm·bk·N operations per live block
     kernels = [{"name": "spmm_bsr", "route": "cuda",
                 "source": "basic_sparse_matrix_tpu_torch/csrc/spmm_bsr.cu",
                 "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
                             "spmm_kernel.py:178",
                 "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}]
+                "plain_ms": plain_ms,
+                **bound(4 * (bsr.n_live * bsr.bm * bsr.bk
+                             + 2 * bsr.n_live + 2 * bsr.n_block_rows
+                             + b_bsr.numel() + bsr.rows * n_out),
+                        2.0 * bsr.bm * bsr.bk * n_out * bsr.n_live),
+                "library_ms": lib_ms}]
     # The other two pick_tiles shapes, each > 100 MB of blocks and a B
     # larger than the 50 MB L2.
     for n, bm, bk, nblocks in ((32768, 256, 512, 410),
@@ -1090,20 +1527,36 @@ def main() -> None:
     torch.cuda.synchronize()
     err = compare("spmm_stream kernel vs plain", out_k,
                   k2.spmm_stream_reference(plan, b_st))
-    del out_k
     ms, plain_ms, four = time_pair(lambda: k2.spmm_stream(plan, b_st),
                                    lambda: k2.spmm_stream_reference(plan,
                                                                     b_st), 5)
     log(f"  spmm_stream: kernel {four[1]:.4f} / {four[2]:.4f} ms, plain "
         f"{four[0]:.4f} / {four[3]:.4f} ms (median of 5, "
         f"plain-kernel-kernel-plain)")
+
+    def csr_library():
+        t = torch.sparse_csr_tensor(a_st.indptr, a_st.indices, a_st.values,
+                                    size=a_st.shape)
+        return lambda: torch.sparse.mm(t, b_st)
+    lib_ms = library_time("torch.sparse.mm(sparse_csr_tensor 1M x 1M, B)",
+                          csr_library, out_k, 5)
+    slots = plan.ii.numel()
+    # the slot arrays and B read once, C written once; one multiply-add per
+    # stored entry and column
     kernels.append({"name": "spmm_stream", "route": "cuda",
                     "source": "basic_sparse_matrix_tpu_torch/csrc/"
                               "spmm_stream.cu",
                     "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
                                 "stream_kernel.py:178",
                     "launches": 0, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms})
+                    "plain_ms": plain_ms,
+                    **bound(12 * slots + 4 * (b_st.numel()
+                                              + plan.rows * b_st.shape[1]),
+                            2.0 * plan.nnz * b_st.shape[1]),
+                    "library_ms": lib_ms})
+    k2_ns_per_entry = ms * 1e6 / plan.nnz
+    k6_on_stream_entries(plan, b_st, out_k, k2_ns_per_entry)
+    del out_k
     gather_bytes = plan.nnz * (8 + 4 * b_st.shape[1]) \
         + plan.rows * b_st.shape[1] * 4
     log(f"  spmm_stream: {gather_bytes / kernels[1]['ms'] / 1e6:.1f} GB/s by "
@@ -1170,12 +1623,9 @@ def main() -> None:
 
     # ---- 7. K3-K5 kernel vs plain at the solver's shapes -----------------
     log("solver kernels vs plain on the card:")
-    for name, src, replaces, err, ms, plain_ms in solver_kernels_vs_plain(
-            main["solver"], gen):
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": main["launches"][name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    for k in solver_kernels_vs_plain(main["solver"], gen):
+        kernels.append({"route": "cuda",
+                        "launches": main["launches"][k["name"]], **k})
     del main
 
     # ---- 8. per-formulation factors, card vs CPU ------------------------
@@ -1183,13 +1633,20 @@ def main() -> None:
     formulations_on_card(dev)
     torch.cuda.empty_cache()
 
-    # ---- 9-13. the rest of models/ ---------------------------------------
+    # ---- 9-13. the rest of models/; 14-17. the sparse × sparse path and
+    # the file round trips -----------------------------------------------
     for phase in (serving_path, banded_tiers, scatter_tier, iterative_path,
-                  card_vs_cpu_k14):
+                  card_vs_cpu_k14, ss_add_path, ss_mul_dense_path,
+                  ss_mul_planned_path, matmul_sparse_path):
         t0 = time.perf_counter()
         phase(dev)
         torch.cuda.empty_cache()
         log(f"  [{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
+
+    # ---- 18. K6 and its probe -----------------------------------------------
+    t0 = time.perf_counter()
+    kernels.append(k6_phase(dev, k2_ns_per_entry))
+    log(f"  [k6_phase: {time.perf_counter() - t0:.1f} s]")
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "

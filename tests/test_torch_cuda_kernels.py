@@ -2,7 +2,9 @@
 on the card, at small and ragged shapes (unaligned rows, columns and RHS
 widths, thin and fat BSR tiles, both vector widths and several column
 slices of the streaming kernel; unaligned run starts, dead slots, runs past
-the end and overlapping add-back spans for the supernodal kernels).
+the end and overlapping add-back spans for the supernodal kernels; ragged
+entry counts, widths that are no multiple of 4 or 32 and one hot row for
+the per-entry FMA).
 
 These need a CUDA device and nvcc; without a device every test skips. On a
 GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -23,6 +25,7 @@ import torch
 
 from basic_sparse_matrix_tpu_torch import CSR, mul_dense
 from basic_sparse_matrix_tpu_torch.ops.pallas import addback_resident as k4
+from basic_sparse_matrix_tpu_torch.ops.pallas import entry_fma as k6
 from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback as k5
 from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read as k3
 from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
@@ -421,3 +424,89 @@ def test_supernodal_factor_on_card_matches_cpu(cuda, gather, scatter):
     assert (got[1] > 0) == ("vmem" in modes)
     assert (got[2] > 0) == ("pallas" in modes)
     _close(lv[str(cuda)], lv["cpu"].to(cuda))
+
+
+# ---- K6: per-entry FMA ------------------------------------------------------
+def _entries(rng, entries, rows, lanes, dev, hot=None):
+    ii = rng.integers(0, rows, entries)
+    if hot is not None:
+        ii[:] = hot
+    kk = rng.integers(0, rows, entries)
+    vv = rng.standard_normal(entries)
+    b = rng.standard_normal((rows, lanes))
+    return (torch.as_tensor(ii.astype(np.int32), device=dev),
+            torch.as_tensor(kk.astype(np.int32), device=dev),
+            torch.as_tensor(vv.astype(np.float32), device=dev),
+            torch.as_tensor(b.astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize(
+    "entries,rows,lanes,hot",
+    [
+        (8192, 4096, 128, None),   # the probe's default shape
+        (8192, 4096, 512, None),   # the streaming kernel's width
+        (1001, 37, 128, None),     # ragged E, heavy repeats
+        (777, 50, 100, None),      # lanes % 32 != 0, still float4 rows
+        (513, 64, 30, None),       # lanes % 4 != 0: the scalar kernel
+        (300, 20, 1, None),        # one lane
+        (8192, 4096, 128, 7),      # every entry into one row
+        (4096, 16, 33, 15),        # one hot row, scalar kernel, last row
+        (0, 8, 16, None),          # no entries: C is cleared
+        (1, 1, 4, None),
+    ],
+)
+def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot):
+    """Tolerance: the kernel's atomics add in no fixed order; the probe's
+    own bound, max abs error < 1e-4, scaled by the largest magnitude where
+    one row takes thousands of entries."""
+    rng = np.random.default_rng(7)
+    ii, kk, vv, b = _entries(rng, entries, rows, lanes, cuda, hot)
+    before = k6.LAUNCHES
+    out = k6.entry_fma(ii, kk, vv, b, rows)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == before + 1
+    ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
+    assert out.shape == ref.shape == (rows, lanes)
+    ref64 = torch.zeros((rows, lanes), dtype=torch.float64, device=cuda)
+    ref64.index_add_(0, ii, vv.double()[:, None] * b.double()[kk.long()])
+    scale = max(float(ref64.abs().max()), 1.0) if entries else 1.0
+    assert float((out - ref).abs().max()) < 1e-4 * scale
+    assert float((out.double() - ref64).abs().max()) < 1e-4 * scale
+
+
+def test_entry_fma_unaligned_b_takes_the_scalar_kernel(cuda):
+    """A ``b`` whose storage starts off a 16-byte boundary cannot take the
+    float4 loads; the wrapper must pick the scalar kernel, not fault."""
+    rng = np.random.default_rng(8)
+    ii, kk, vv, b = _entries(rng, 500, 40, 64, cuda)
+    flat = torch.zeros(40 * 64 + 1, device=cuda)
+    flat[1:] = b.reshape(-1)
+    b_off = flat[1:].view(40, 64)
+    assert b_off.data_ptr() % 16 != 0 and b_off.is_contiguous()
+    out = k6.entry_fma(ii, kk, vv, b_off, 40)
+    torch.cuda.synchronize()
+    _close(out, k6.entry_fma_reference(ii, kk, vv, b, 40))
+
+
+def test_entry_fma_raises_on_cuda_misuse(cuda):
+    rng = np.random.default_rng(9)
+    ii, kk, vv, b = _entries(rng, 64, 32, 128, cuda)
+    before = k6.LAUNCHES
+    with pytest.raises(TypeError):
+        k6.entry_fma(ii.long(), kk, vv, b, 32)
+    with pytest.raises(IndexError):
+        k6.entry_fma(ii + 32, kk, vv, b, 32)
+    with pytest.raises(ValueError):
+        k6.entry_fma(ii, kk, vv, b.t().contiguous().t(), 32)
+    with pytest.raises(ValueError):
+        k6.entry_fma(ii, kk, vv, b.cpu(), 32)
+    assert k6.LAUNCHES == before
+
+
+def test_entry_fma_probe_runs_on_the_card(cuda):
+    from basic_sparse_matrix_tpu_torch.probes import entry_fma_probe as probe
+
+    assert probe.check(*probe.CHECK_SHAPE, cuda) < 1e-4
+    res = probe.measure(8192, 4096, 128, cuda, iters=5)
+    assert res["value"] > 0 and res["stream_kernel_ns"] > 0
+    assert res["max_abs_err"] < 1e-4 and res["stream_max_abs_err"] < 1e-4

@@ -5,8 +5,9 @@ Mirrors ``test_operator.py``: products ``rtol=1e-5`` with
 ``atol=1e-5·max|ref|`` against the JAX operator (float32 sums in another
 order); direct solves ``rtol=1e-4`` with ``atol=1e-5·max|ref|`` (two
 float32 factorizations); CG, Chebyshev and Lanczos through the cached
-set-ups with the JAX tests' own bounds. ``matmul_sparse`` needs
-``ops/spgemm.py``, which the port does not have yet: it raises.
+set-ups with the JAX tests' own bounds. ``matmul_sparse`` goes through
+``ops/spgemm.py`` and raises ``IncorrectDimensions`` on operands that do not
+fit.
 """
 
 import dataclasses
@@ -139,15 +140,24 @@ def test_operator_chebyshev():
 
 
 def test_operator_matmul_sparse_raises():
+    """``matmul_sparse`` has the product (it raised ``NotImplementedError``
+    until ``ops/spgemm.py`` was ported); what it raises now is the
+    inner-dimension error, as the JAX operator does."""
     a_dense = _spd(8, seed=7)
     op = P.SparseOperator(P.CSR.from_dense(a_dense))
-    with pytest.raises(NotImplementedError, match="spgemm"):
-        op.matmul_sparse(P.CSR.from_dense(a_dense))
-    # the JAX operator has the product
-    jc = J.SparseOperator(J.CSR.from_dense(a_dense)).matmul_sparse(
-        J.CSR.from_dense(a_dense))
+    jop = J.SparseOperator(J.CSR.from_dense(a_dense))
+    pc = op.matmul_sparse(P.CSR.from_dense(a_dense))
+    jc = jop.matmul_sparse(J.CSR.from_dense(a_dense))
+    assert np.array_equal(pc.indptr.numpy(), np.asarray(jc.indptr))
+    assert np.array_equal(pc.indices.numpy(), np.asarray(jc.indices))
+    np.testing.assert_allclose(pc.values.numpy(), np.asarray(jc.values),
+                               rtol=1e-5)
     np.testing.assert_allclose(np.asarray(jc.todense()), a_dense @ a_dense,
                                rtol=1e-4, atol=1e-4)
+    with pytest.raises(P.IncorrectDimensions, match="mul_sparse"):
+        op.matmul_sparse(P.CSR.from_dense(a_dense[:5]))
+    with pytest.raises(J.IncorrectDimensions, match="mul_sparse"):
+        jop.matmul_sparse(J.CSR.from_dense(a_dense[:5]))
 
 
 def test_exports_match_jax():
