@@ -29,12 +29,39 @@
 // the L2 atomics, one per entry and 16 bytes of lanes. The launcher clears C
 // with cudaMemsetAsync on the same stream before the kernel.
 //
+// A second kernel ("cluster") was built for the tiles that fit a
+// thread-block cluster's shared memory, the probe's own sizes among them.
+// There the global-atomic kernel above is two device operations (the memset
+// and the kernel), each near the floor of a launch, and every add is a
+// read-modify-write in L2. entry_fma_cluster is ONE launch with no global
+// atomics: the lanes are cut into slices, one cluster of CS blocks (16, the
+// non-portable size, or 8) per slice; block `rank` of a cluster holds rows
+// [rank * rpb, (rank + 1) * rpb) of its lane slice in its own shared memory
+// (R 4096 x 16 lanes over 16 blocks: 16 KB a block), so the cluster's
+// distributed shared memory holds the whole slice of the tile, as the TPU's
+// vector memory holds the tile. Every block zeroes its share, the cluster
+// synchronises, each block takes E / CS of the entries and adds
+// v * B[k, lane] into the OWNING block's shared memory through
+// cluster.map_shared_rank (a scalar atomicAdd: rows repeat, and the float4
+// form exists for global memory only), the cluster synchronises again, and
+// every block writes its rows of C once, coalesced. Every cluster reads all
+// entries, so the number of clusters is kept near what the card runs side
+// by side. The order of the adds is still not fixed.
+//   What bounds it on the H100: the adds into other blocks' shared memory.
+// One scalar add per entry and lane (1M at the probe's default shape
+// against 262,144 float4 atomics in L2) crosses the SM-to-SM network, and
+// adds into one address queue at about 0.4 us each. Measured device time,
+// cluster against atomic (probes/entry_fma_probe.py): default shape 25.6
+// against 9.1 us, 512 lanes 74.2 against 15.0 us, every entry in one row
+// 3181 against 45.3 us. The wrapper therefore launches it only on request;
+// the atomic kernel keeps every tile.
+//
 // The wrapper checks the indices on the host side of the call
-// (0 <= ii, kk < R), so the kernel does no bounds checks. Offsets are
-// 64-bit. Plain C interface for ctypes; the launch goes on the caller's
-// stream and the function returns the first CUDA error of the memset and
-// the launch.
+// (0 <= ii, kk < R), so the kernels do no bounds checks. Offsets are
+// 64-bit. Plain C interface for ctypes; every launch goes on the caller's
+// stream and the functions return the first CUDA error of their calls.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,7 +104,128 @@ __global__ void entry_fma_scalar(const int* __restrict__ ii,
   atomicAdd(C + i * lanes + l, __ldg(vv + e) * __ldg(B + k * lanes + l));
 }
 
+constexpr int CT = 512;  // threads of a cluster kernel block
+
+// grid n_clusters * CS blocks in clusters of CS; cluster c owns lanes
+// [c * ls, min((c + 1) * ls, lanes)); dynamic shared memory rpb * ls floats.
+__global__ void __launch_bounds__(CT)
+entry_fma_cluster(const int* __restrict__ ii, const int* __restrict__ kk,
+                  const float* __restrict__ vv, const float* __restrict__ B,
+                  float* __restrict__ C, long long entries, int rows,
+                  int lanes, int rpb, int ls) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float share[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane0 = (int)(blockIdx.x / cs) * ls;
+  const int nl = min(ls, lanes - lane0);
+
+  for (int t = threadIdx.x; t < rpb * ls; t += CT) share[t] = 0.f;
+  cluster.sync();
+
+  const long long per_block = (entries + cs - 1) / cs;
+  const long long e0 = rank * per_block;
+  const long long mine = min(per_block, entries - e0);  // may be <= 0
+  for (long long t = threadIdx.x; t < mine * nl; t += CT) {
+    const long long e = e0 + t / nl;
+    const int l = (int)(t % nl);
+    const int i = __ldg(ii + e);
+    const long long k = __ldg(kk + e);
+    const int owner = i / rpb;
+    float* dst = cluster.map_shared_rank(share, owner);
+    atomicAdd(dst + (i - owner * rpb) * ls + l,
+              __ldg(vv + e) * __ldg(B + k * lanes + lane0 + l));
+  }
+  cluster.sync();
+
+  const int r0 = rank * rpb;
+  const int nr = min(rpb, rows - r0);  // may be <= 0
+  for (int t = threadIdx.x; t < nr * nl; t += CT) {
+    const int r = t / nl;
+    const int l = t - r * nl;
+    C[(long long)(r0 + r) * lanes + lane0 + l] = share[r * ls + l];
+  }
+}
+
+cudaError_t cluster_attributes(int cs, size_t smem) {
+  static size_t smem_set = 48 * 1024;
+  static bool non_portable = false;
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        entry_fma_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (cs > 8 && !non_portable) {
+    cudaError_t err = cudaFuncSetAttribute(
+        entry_fma_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    non_portable = true;
+  }
+  return cudaSuccess;
+}
+
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    int n_clusters, int cs, size_t smem, cudaStream_t s) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)(n_clusters * cs));
+  cfg->blockDim = dim3(CT);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
 }  // namespace
+
+// How many clusters of cs blocks with smem bytes of dynamic shared memory
+// each the card can hold at once (0: such a cluster cannot be resident), or
+// minus the CUDA error.
+extern "C" int bsm_entry_fma_cluster_fit(int cs, int smem) {
+  cudaError_t err = cluster_attributes(cs, (size_t)smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, 1, cs, (size_t)smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, entry_fma_cluster, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return n;
+}
+
+// The cluster kernel: n_clusters lane slices of ls lanes, clusters of cs
+// blocks holding rpb rows each (cs * rpb >= rows, n_clusters * ls >= lanes,
+// rpb * ls * 4 bytes of shared memory a block).
+extern "C" int bsm_entry_fma_cluster(const int* ii, const int* kk,
+                                     const float* vv, const float* B,
+                                     float* C, long long entries, int rows,
+                                     int lanes, int cs, int rpb, int ls,
+                                     int n_clusters, void* stream) {
+  if (rows <= 0 || lanes <= 0) return 0;
+  if (cs <= 0 || rpb <= 0 || ls <= 0 || (long long)cs * rpb < rows ||
+      (long long)n_clusters * ls < lanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (size_t)rpb * ls * sizeof(float);
+  cudaError_t err = cluster_attributes(cs, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, n_clusters, cs, smem,
+                 static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cfg, entry_fma_cluster, ii, kk, vv, B, C, entries,
+                           rows, lanes, rpb, ls);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // vec is 4 when lanes % 4 == 0 and B, C are 16-byte aligned, else 1.
 extern "C" int bsm_entry_fma(const int* ii, const int* kk, const float* vv,

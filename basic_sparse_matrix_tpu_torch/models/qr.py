@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import CSR
-from ..utils.config import matmul_precision
+from ..utils.config import default_device, matmul_precision
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 
 
@@ -80,7 +80,7 @@ def _as_dense(a) -> torch.Tensor:
         return a.todense()
     if isinstance(a, torch.Tensor):
         return a
-    return torch.as_tensor(np.asarray(a))
+    return torch.as_tensor(np.asarray(a), device=default_device())
 
 
 def tsqr(a, block_rows: int = DEFAULT_TSQR_BLOCK

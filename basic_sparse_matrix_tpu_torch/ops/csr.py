@@ -1,4 +1,4 @@
-"""CSR matrix on an explicit torch device — the core storage type.
+"""CSR matrix on one torch device — the core storage type.
 
 Counterpart of ``basic_sparse_matrix_tpu/ops/csr.py``. A :class:`CSR` holds
 three tensors (``indptr`` (rows+1,) int32, ``indices`` (nnz,) int32,
@@ -21,6 +21,7 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.config import default_device
 from ..utils.errors import (
     IncorrectDimensions,
     OutOfBounds,
@@ -55,10 +56,11 @@ def canonical(arr: np.ndarray) -> np.ndarray:
 
 
 def to_tensor(arr: np.ndarray, device=None) -> torch.Tensor:
-    """numpy → tensor on ``device``. A CPU tensor gets its own copy, so
-    the host mirror and the tensor never alias."""
+    """numpy → tensor on ``device`` (``None``: the configured default
+    device, the card). A CPU tensor gets its own copy, so the host mirror
+    and the tensor never alias."""
     arr = np.ascontiguousarray(arr)
-    dev = torch.device("cpu" if device is None else device)
+    dev = default_device(device)
     if dev.type == "cpu" or not arr.flags.writeable:
         arr = arr.copy()
     t = torch.from_numpy(arr)

@@ -3,8 +3,10 @@
 Counterpart of ``basic_sparse_matrix_tpu/ops/dense.py``. The reference's
 ``Dense<T>`` is column-major and its ``from_data`` takes a list of
 *columns*; this wrapper keeps that construction convention while storing a
-plain row-major ``(rows, cols)`` tensor on an explicit device. ``DenseS``
-(the reference's const-generic twin) is an alias.
+plain row-major ``(rows, cols)`` tensor on one device: host data goes to
+``device`` (``None``: the configured default device, the card), a tensor
+stays where it is unless ``device`` is given. ``DenseS`` (the reference's
+const-generic twin) is an alias.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.config import default_device
 from ..utils.errors import IncorrectDimensions, check
 from ..utils.shapes import MatDim
 
@@ -19,7 +22,7 @@ from ..utils.shapes import MatDim
 def _as_tensor(data, device=None) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         return data if device is None else data.to(device)
-    return torch.as_tensor(np.array(data), device=device)
+    return torch.as_tensor(np.array(data), device=default_device(device))
 
 
 class Dense:
@@ -35,7 +38,7 @@ class Dense:
                               dtype=torch.float32, device=None) -> "Dense":
         """Zero matrix. NOTE the reference argument order: (cols, rows)."""
         return Dense(torch.zeros((row_count, col_count), dtype=dtype,
-                                 device=device))
+                                 device=default_device(device)))
 
     @staticmethod
     def new_with_dims(val, col_count: int, row_count: int,

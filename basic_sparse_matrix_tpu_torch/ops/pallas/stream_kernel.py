@@ -8,22 +8,42 @@ slots, and lays them out as ``(ncells, 1, cellmax)`` arrays — the same
 arrays, for the same tiles, as the JAX package builds. :func:`spmm_stream`
 computes ``C[rt*tile_m + i, :] += v * B[kt*tile_k + k, :]`` over all slots:
 
-* on a CUDA tensor with the hand-written kernel ``csrc/spmm_stream.cu``
-  (one thread block per row tile and column slice, output tile in shared
-  memory), or it raises;
-* on a CPU tensor with :func:`spmm_stream_reference`, the plain version.
+* on a CUDA tensor with one of the two hand-written kernels of
+  ``csrc/spmm_stream.cu``, chosen by shape (:func:`pick_stream_kernel`), or
+  it raises:
+
+  - ``"tile"``: one thread block per row tile and column slice, output tile
+    in shared memory, one whole row of B read per slot. Any plan.
+  - ``"sliced"``: the columns of B cut into slices of ``w`` columns over
+    all K rows, a persistent grid that sweeps every row for one slice
+    before any block moves to the next, a few threads per row with the
+    row's sum in registers (:func:`spmm_stream_sliced`). At ``w = 32`` a
+    row's piece of B is one whole 128-byte L2 line: the slice (K x 128
+    bytes) stays in L2 where it fits and streams at the HBM rate where it
+    does not. Plans with one k tile whose cells keep their slots sorted by
+    row, float32 ``B`` with ``N % 4 == 0``. Narrower slices (w = 4, 8, 16,
+    B repacked slice-major by the pack kernel) are kept as options of
+    :func:`spmm_stream_sliced` for ``probes/stream_slice_probe.py``: on the
+    H100 they lose to the tile kernel, because a gather of 32-byte pieces
+    from L2 is no faster than the tile kernel's 2 KB reads from HBM;
+
+* on a CPU tensor with :func:`spmm_stream_reference`, the plain version of
+  both kernels. :func:`spmm_stream_sliced_model` is a pure-torch model of
+  the sliced kernel's arithmetic (pack, per-row sums, unpack) for the tests.
 
 The JAX package's three ``layout`` values are three TPU register layouts of
-one function; here one kernel serves all three. The CUDA target's tiles are
-its own: :func:`pick_tile_m` sizes the output tile for Hopper's shared
-memory, and ``cuda_stream_tile_k`` (default: one k tile) bins by column.
-``LAUNCHES`` counts kernel launches.
+one function; here they select nothing. The CUDA target's tiles are its
+own: :func:`pick_tile_m` sizes the output tile for Hopper's shared memory,
+and ``cuda_stream_tile_k`` (default: one k tile) bins by column.
+``LAUNCHES`` counts :func:`spmm_stream`, :func:`spmm_stream_tile` and
+:func:`spmm_stream_sliced` calls that launched a kernel,
+``LAUNCHES_BY_KERNEL`` the same per kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +54,7 @@ from ..csr import to_tensor
 # Launches of the K2 CUDA kernel in this process (a plain counter that a
 # caller may reset to 0).
 LAUNCHES = 0
+LAUNCHES_BY_KERNEL = {"tile": 0, "sliced": 0}
 
 # The JAX package's default tiles; build_stream_plan keeps them as defaults
 # so the plan arrays equal the JAX package's for the same arguments.
@@ -51,6 +72,28 @@ SMEM_MAX_BYTES = 232448
 # Threads of one thread block; each owns 4 adjacent columns (1 when the
 # RHS width is no multiple of 4), so a block covers up to 512 columns.
 THREADS = 128
+
+# Slice widths (columns of B) the sliced kernel is built for, widest first.
+# The dispatch takes the first: 32 columns are one whole 128-byte line a row.
+SLICE_WIDTHS = (32, 16, 8, 4)
+# A B (K x N x 4 bytes) up to this size is taken as L2-resident as it lies,
+# and keeps the tile kernel. The H100's L2 is 50 MB; a gather of 32-byte
+# pieces from all SMs reads a 16 MB array at 4.4 TB/s, a 32 MB one at 3.2
+# and a 64 MB one at 1.7 TB/s (probes/stream_slice_probe.py), so what a
+# gather can use of it ends between 32 and 64 MB.
+L2_SLICE_BUDGET_BYTES = 32 << 20
+# In the sliced kernel one thread group walks a row's slots one after
+# another, 16 slices over (n = 512): about 1.9 us a slot of the longest row,
+# whatever the size of the matrix, while what the kernel gains grows with
+# the rows. So a plan keeps the tile kernel (which spreads every slot over
+# the whole block, but walks the padding a long row brings) when its longest
+# row has more than rows / LONG_ROW_ROWS slots. Measured on the H100 with one
+# long row among rows of 32 entries, n = 512, tile / sliced ms
+# (probes/stream_slice_probe.py --long-rows): 50k rows 256 slots 0.916 /
+# 0.870, 512 slots 1.002 / 1.310; 200k rows 1024 slots 5.03 / 4.44, 2048
+# slots 6.12 / 6.66; 1M rows 4096 slots 43.6 / 35.3. Under 50k rows the
+# crossing is not measured.
+LONG_ROW_ROWS = 192
 
 # The plain version gathers (slots, n) products; it takes the cells in
 # chunks whose gather stays under this many bytes.
@@ -71,6 +114,9 @@ class StreamPlan:
     n_rt: int
     n_kt: int
     nnz: int
+    # Memo of cell_row_pointers(): (row_ptr or None, longest_row).
+    _rows: Optional[Tuple[Optional[torch.Tensor], int]] = dataclasses.field(
+        default=None, init=False, repr=False)
 
     @property
     def cellmax(self) -> int:
@@ -178,7 +224,108 @@ def spmm_stream_reference(plan: StreamPlan, b: torch.Tensor) -> torch.Tensor:
     return out[: plan.rows]
 
 
-def _slice_width(tile_m: int, n: int, vec: int) -> int:
+def cell_row_pointers(plan: StreamPlan
+                      ) -> Tuple[Optional[torch.Tensor], int]:
+    """Per-cell row pointers for the sliced kernel, derived once from
+    ``plan.ii`` on the plan's device and memoised on the plan:
+    ``row_ptr[c, i] .. row_ptr[c, i + 1]`` are the slots of cell ``c`` that
+    hold tile-local row ``i`` ((ncells, tile_m + 1) int32), and the length of
+    the longest row of any cell. Live slots are those with ``v != 0``
+    (``build_stream_plan`` drops zeros; padding is ``v = 0``). The pointers
+    exist only where every cell keeps its live slots first and sorted by row,
+    as ``build_stream_plan``'s stable sort leaves them; otherwise
+    ``(None, longest)``."""
+    if plan._rows is None:
+        ii, live = plan.ii[:, 0, :].long(), plan.vv[:, 0, :] != 0
+        ncells = ii.shape[0]
+        ordered = bool(((live[:, :-1] | ~live[:, 1:])
+                        & ((ii[:, 1:] >= ii[:, :-1]) | ~live[:, 1:])).all())
+        cell = torch.arange(ncells, device=ii.device)[:, None]
+        counts = torch.bincount((cell * plan.tile_m + ii)[live],
+                                minlength=ncells * plan.tile_m
+                                ).view(ncells, plan.tile_m)
+        longest = int(counts.max()) if counts.numel() else 0
+        row_ptr = None
+        if ordered:
+            row_ptr = torch.zeros((ncells, plan.tile_m + 1),
+                                  dtype=torch.int32, device=ii.device)
+            row_ptr[:, 1:] = counts.cumsum(1)
+        plan._rows = (row_ptr, longest)
+    return plan._rows
+
+
+def slice_width(k: int, n: int, n_kt: int) -> int:
+    """Columns per slice the sliced kernel takes for a (k, n) right-hand
+    side, or 0 where it does not apply: more than one k tile, ``n`` no
+    multiple of 4, or a ``B`` that fits ``L2_SLICE_BUDGET_BYTES`` whole
+    (the tile kernel's reads then hit L2 anyway). Where it applies the
+    width is ``SLICE_WIDTHS[0]`` = 32, read as ``B`` lies: measured on the
+    H100 at 32 entries a row and n = 512, sliced / tile ms at K = 200k
+    (slice 25.6 MB, in L2) 2.46 / 4.45, at 400k 5.54 / 9.27, at 1M (slice
+    128 MB, streamed) 21.4 / 23.7, and every narrower width slower than the
+    tile kernel."""
+    if n_kt != 1 or n % 4 != 0 or k * n * 4 <= L2_SLICE_BUDGET_BYTES:
+        return 0
+    return SLICE_WIDTHS[0]
+
+
+def pick_stream_kernel(rows: int, k: int, n: int, n_kt: int,
+                       longest_row: int) -> Tuple[str, int]:
+    """The kernel :func:`spmm_stream` launches for a plan of ``rows`` rows
+    with ``n_kt`` k tiles and a longest row of ``longest_row`` slots against
+    a (k, n) right-hand side, by shape alone: ``("sliced", w)`` where
+    :func:`slice_width` gives a width and no row has more than
+    ``rows / LONG_ROW_ROWS`` slots, else ``("tile", 0)``."""
+    w = slice_width(k, n, n_kt)
+    if w and longest_row * LONG_ROW_ROWS <= rows:
+        return "sliced", w
+    return "tile", 0
+
+
+def pack_slices(b: torch.Tensor, w: int) -> torch.Tensor:
+    """``b`` (K, N) slice-major, (ceil(N / w), K, w), columns past N zero:
+    the plain version of the pack kernel."""
+    k, n = b.shape
+    n_slices = -(-n // w)
+    padded = torch.zeros((k, n_slices * w), dtype=b.dtype, device=b.device)
+    padded[:, :n] = b
+    return padded.view(k, n_slices, w).permute(1, 0, 2).contiguous()
+
+
+def spmm_stream_sliced_model(plan: StreamPlan, b: torch.Tensor,
+                             w: int) -> torch.Tensor:
+    """Pure-torch model of the sliced kernel: pack ``b`` slice-major, then
+    for every slice sum each row's slots (``row_ptr`` gives them; padding is
+    never visited) and write the row's ``w`` outputs. Plans with one k tile
+    whose cells are sorted by row. Returns (rows, n) float32."""
+    row_ptr, _ = cell_row_pointers(plan)
+    if row_ptr is None or plan.n_kt != 1:
+        raise ValueError("the sliced kernel takes plans with one k tile "
+                         "whose cells keep their slots sorted by row")
+    n = int(b.shape[1])
+    packed = pack_slices(b.float(), w)
+    lens = torch.diff(row_ptr.long(), dim=1)               # (ncells, tile_m)
+    first = row_ptr[:, :-1].long() + plan.cellmax * torch.arange(
+        row_ptr.shape[0], device=row_ptr.device)[:, None]
+    row_of = torch.repeat_interleave(
+        torch.arange(lens.numel(), device=lens.device), lens.reshape(-1))
+    # flat slot index of every live slot, row by row in slot order
+    start = torch.cumsum(lens.reshape(-1), 0) - lens.reshape(-1)
+    slot = first.reshape(-1)[row_of] + (
+        torch.arange(row_of.numel(), device=lens.device) - start[row_of])
+    # one k tile: row_of numbers (row tile, tile-local row) pairs, which are
+    # the global rows
+    kk = plan.kk.reshape(-1)[slot].long()
+    vv = plan.vv.reshape(-1)[slot]
+    out = torch.zeros((packed.shape[0], plan.n_rt * plan.tile_m, w),
+                      dtype=torch.float32, device=b.device)
+    for s in range(packed.shape[0]):
+        out[s].index_add_(0, row_of, packed[s][kk] * vv[:, None])
+    return out.permute(1, 0, 2).reshape(out.shape[1], -1)[: plan.rows, :n] \
+        .contiguous()
+
+
+def _tile_columns(tile_m: int, n: int, vec: int) -> int:
     """Column slice of one thread block: ``n`` rounded up to whole warps,
     at most 128 threads' worth, halved until the output tile fits shared
     memory."""
@@ -191,22 +338,7 @@ def _slice_width(tile_m: int, n: int, vec: int) -> int:
     return cw
 
 
-def spmm_stream(plan: StreamPlan, b: torch.Tensor,
-                layout: str = "vreg") -> torch.Tensor:
-    """SpMM against a pre-binned plan: the K2 CUDA kernel for a CUDA ``b``,
-    the plain version for a CPU one. ``layout`` ("row", "vreg" or "vregp",
-    the JAX package's TPU register layouts) selects nothing here: all three
-    are the same function. Returns (rows, n) float32."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
-    if b.ndim != 2 or b.shape[0] != plan.cols:
-        raise ValueError(f"RHS {tuple(b.shape)} does not fit a plan with "
-                         f"{plan.cols} cols")
-    if not b.is_cuda:
-        return spmm_stream_reference(plan, b)
-    global LAUNCHES
-    from ...runtime import cuda_kernels
-
+def _check_cuda_operands(plan: StreamPlan, b: torch.Tensor) -> None:
     for t in (plan.ii, plan.kk, plan.vv):
         if t.device != b.device:
             raise ValueError(f"plan on {t.device}, RHS on {b.device}")
@@ -214,10 +346,28 @@ def spmm_stream(plan: StreamPlan, b: torch.Tensor,
             raise ValueError("stream plan tensors must be contiguous")
     if b.dtype != torch.float32:
         raise TypeError(f"CUDA SpMM kernels take float32, got {b.dtype}")
+
+
+def _count(kernel: str) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[kernel] += 1
+
+
+def spmm_stream_tile(plan: StreamPlan, b: torch.Tensor) -> torch.Tensor:
+    """SpMM against ``plan`` by the tile kernel on a CUDA ``b`` (any plan,
+    any width), whatever :func:`spmm_stream` would pick. Counts one
+    launch."""
+    from ...runtime import cuda_kernels
+
+    if not b.is_cuda:
+        raise ValueError("spmm_stream_tile launches a CUDA kernel; for a "
+                         "CPU tensor use spmm_stream")
+    _check_cuda_operands(plan, b)
     b = b.contiguous()
     n = int(b.shape[1])
     vec = 4 if n % 4 == 0 and b.data_ptr() % 16 == 0 else 1
-    cw = _slice_width(plan.tile_m, n, vec)
+    cw = _tile_columns(plan.tile_m, n, vec)
     out = torch.empty((plan.rows, n), dtype=torch.float32, device=b.device)
     lib = cuda_kernels.load()
     with torch.cuda.device(b.device):
@@ -227,9 +377,130 @@ def spmm_stream(plan: StreamPlan, b: torch.Tensor,
             b.data_ptr(), out.data_ptr(), plan.n_rt, plan.n_kt,
             plan.cellmax, plan.tile_m, plan.tile_k, plan.rows, n, n, n, cw,
             vec, stream)
-    LAUNCHES += 1
-    cuda_kernels.check_launch(lib, status, "spmm_stream")
+    _count("tile")
+    cuda_kernels.check_launch(lib, status, "spmm_stream (tile kernel)")
     return out
+
+
+def pack_slices_cuda(b: torch.Tensor, w: int) -> torch.Tensor:
+    """``b`` (K, N) float32 on the card, slice-major (ceil(N / w), K, w), by
+    the pack kernel of ``csrc/spmm_stream.cu``; ``N % 4 == 0``."""
+    from ...runtime import cuda_kernels
+
+    k, n = (int(x) for x in b.shape)
+    if not b.is_cuda or b.dtype != torch.float32 or n % 4 or w not in \
+            SLICE_WIDTHS:
+        raise ValueError(f"pack_slices_cuda takes a CUDA float32 (K, N) with "
+                         f"N % 4 == 0 and w in {SLICE_WIDTHS}, got "
+                         f"{b.device}, {b.dtype}, {tuple(b.shape)}, w = {w}")
+    b = b.contiguous()
+    packed = torch.empty((-(-n // w), k, w), dtype=torch.float32,
+                         device=b.device)
+    lib = cuda_kernels.load()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        status = lib.bsm_pack_slices(b.data_ptr(), packed.data_ptr(), k, n,
+                                     w, stream)
+    cuda_kernels.check_launch(lib, status, "pack_slices")
+    return packed
+
+
+def spmm_stream_sliced(plan: StreamPlan, b: torch.Tensor, w: int, *,
+                       pack: Optional[bool] = None,
+                       c_slice_major: bool = False) -> torch.Tensor:
+    """SpMM against ``plan`` by the sliced kernel with slices of ``w``
+    columns, on a CUDA float32 ``b`` (K, N), ``N % 4 == 0``; raises where
+    the kernel does not apply. Counts one launch.
+
+    ``pack`` (default: ``w < 32``) first repacks ``b`` slice-major with the
+    pack kernel, so that a slice's bytes are contiguous and fill whole L2
+    lines; at ``w = 32`` a row's piece is a whole line and ``b`` is read as
+    it lies. The plan has one k tile. The dispatch of :func:`spmm_stream`
+    only ever takes ``w = 32`` unpacked; the narrower widths are measured
+    by ``probes/stream_slice_probe.py``. ``c_slice_major`` writes C
+    slice-major too and unpacks it with one strided copy (a measurement
+    option: the default writes each row's ``w`` outputs straight into the
+    row-major result). Both steps run on the caller's stream, inside any
+    time taken around this call."""
+    from ...runtime import cuda_kernels
+
+    if not b.is_cuda:
+        raise ValueError("spmm_stream_sliced launches a CUDA kernel; for a "
+                         "CPU tensor use spmm_stream")
+    _check_cuda_operands(plan, b)
+    k, n = (int(x) for x in b.shape)
+    row_ptr, _ = cell_row_pointers(plan)
+    if (row_ptr is None or plan.n_kt != 1 or k != plan.cols or n % 4
+            or w not in SLICE_WIDTHS):
+        raise ValueError(f"the sliced kernel takes a plan with one k tile "
+                         f"whose cells are sorted by row, N % 4 == 0 and w "
+                         f"in {SLICE_WIDTHS}; got {plan.n_kt} k tiles, "
+                         f"sorted {row_ptr is not None}, B "
+                         f"{tuple(b.shape)}, w {w}")
+    b = b.contiguous()
+    n_slices = -(-n // w)
+    if pack is None:
+        pack = w < 32
+    src = pack_slices_cuda(b, w) if pack else b
+    b_strides = (k * w, w) if pack else (w, n)
+    if c_slice_major:
+        out = torch.empty((n_slices, plan.rows, w), dtype=torch.float32,
+                          device=b.device)
+        c_strides = (plan.rows * w, w)
+    else:
+        out = torch.empty((plan.rows, n), dtype=torch.float32,
+                          device=b.device)
+        c_strides = (w, n)
+    lib = cuda_kernels.load()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        status = lib.bsm_spmm_stream_sliced(
+            row_ptr.data_ptr(), plan.kk.data_ptr(), plan.vv.data_ptr(),
+            src.data_ptr(), out.data_ptr(), plan.rows, n, plan.tile_m,
+            plan.cellmax, w, *b_strides, *c_strides, stream)
+    _count("sliced")
+    cuda_kernels.check_launch(lib, status, "spmm_stream (sliced kernel)")
+    if c_slice_major:
+        out = out.permute(1, 0, 2).reshape(plan.rows, n_slices * w)[:, :n] \
+            .contiguous()
+    return out
+
+
+def spmm_stream(plan: StreamPlan, b: torch.Tensor,
+                layout: str = "vreg") -> torch.Tensor:
+    """SpMM against a pre-binned plan: a K2 CUDA kernel for a CUDA ``b``,
+    the plain version for a CPU one. Returns (rows, n) float32.
+
+    Which kernel, by shape (:func:`pick_stream_kernel`): the sliced kernel
+    where the plan has one k tile, ``B`` (K x N x 4 bytes) is larger than
+    ``L2_SLICE_BUDGET_BYTES`` (1M x 512: 2 GB), ``N % 4 == 0``, the cells
+    are sorted by row and no row has more than ``rows / LONG_ROW_ROWS``
+    slots (1M rows: 5208),
+    with slices of 32 columns read as ``B`` lies; the tile kernel
+    everywhere else (a ``B`` that fits L2 whole, several k tiles, ragged
+    widths, one very long row). A kernel that fails to build or launch
+    raises; neither steps down to the other or to the plain version. The
+    row pointers and the longest row are derived on the first call and kept
+    on the plan. ``layout`` ("row",
+    "vreg" or "vregp", the JAX package's TPU register layouts) selects
+    nothing here: all three are the same function."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if b.ndim != 2 or b.shape[0] != plan.cols:
+        raise ValueError(f"RHS {tuple(b.shape)} does not fit a plan with "
+                         f"{plan.cols} cols")
+    if not b.is_cuda:
+        return spmm_stream_reference(plan, b)
+    _check_cuda_operands(plan, b)
+    k, n = (int(x) for x in b.shape)
+    # The row walk (one bincount over the plan) is spared where the shape
+    # alone already decides for the tile kernel.
+    row_ptr, longest = cell_row_pointers(plan) \
+        if slice_width(k, n, plan.n_kt) else (None, 0)
+    kernel, w = pick_stream_kernel(plan.rows, k, n, plan.n_kt, longest)
+    if kernel == "sliced" and row_ptr is not None:
+        return spmm_stream_sliced(plan, b, w)
+    return spmm_stream_tile(plan, b)
 
 
 def pick_tile_m(rows: int, n_rhs: int) -> int:

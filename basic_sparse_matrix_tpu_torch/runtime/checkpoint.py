@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import CSR, to_tensor
+from ..utils.config import default_device
 
 
 def _np(t) -> np.ndarray:
@@ -131,7 +132,7 @@ def load_direct(path: str, device=None):
     with np.load(path) as z:
         s = DirectSolver.__new__(DirectSolver)
         s.n = int(z["n"])
-        s.device = torch.device("cpu" if device is None else device)
+        s.device = device = default_device(device)
         perm = z["perm"]
         s.perm = perm if perm.size else None
         s.timings = {}

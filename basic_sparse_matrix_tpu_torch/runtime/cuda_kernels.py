@@ -56,12 +56,24 @@ _SIGNATURES = {
     # ii, kk, vv, B, C, n_rt, n_kt, cellmax, tile_m, tile_k, rows, N, ldb,
     # ldc, cw, vec, stream
     "bsm_spmm_stream": [_P] * 5 + [_I] * 7 + [_LL, _LL, _I, _I, _P],
+    # B, P, K, N, w, stream
+    "bsm_pack_slices": [_P, _P, _LL, _I, _I, _P],
+    # rp, kk, vv, B, C, rows, N, tile_m, cellmax, w, b_slice, ldb, c_slice,
+    # ldc, stream
+    "bsm_spmm_stream_sliced": [_P] * 5 + [_I] * 5 + [_LL] * 4 + [_P],
+    # A, out, pieces, iters, blocks, stream
+    "bsm_l2_gather_probe": [_P, _P, _LL, _I, _I, _P],
     # lvals, n, stf, crq, l_pad, out, stream
     "bsm_runs_read": [_P, _LL, _P, _I, _I, _P, _P],
     # lvals, n, rows, starts, nslots, len, stream
     "bsm_addback": [_P, _LL, _P, _P, _I, _I, _P],
     # ii, kk, vv, B, C, entries, rows, lanes, vec, stream
     "bsm_entry_fma": [_P] * 5 + [_LL, _I, _I, _I, _P],
+    # cluster size, shared memory bytes -> clusters resident at once
+    "bsm_entry_fma_cluster_fit": [_I, _I],
+    # ii, kk, vv, B, C, entries, rows, lanes, cluster size, rows a block,
+    # lane slice, clusters, stream
+    "bsm_entry_fma_cluster": [_P] * 5 + [_LL] + [_I] * 6 + [_P],
 }
 
 

@@ -1,5 +1,8 @@
 """Configuration: the JAX package's ``Config`` fields, ``BSM_*`` env overrides
-and ``get_config``/``set_config``, plus the CUDA target's own tile fields.
+and ``get_config``/``set_config``, plus the CUDA target's own tile fields and
+``device``, the device every constructor and loader builds on when its
+caller names none (:func:`default_device`; ``"cuda"`` unless ``BSM_DEVICE``
+or :func:`use_device` says otherwise).
 
 The dispatch thresholds (``dense_dispatch_density``,
 ``dense_dispatch_max_bytes``, ``bsr_min_fill``, ``ell_max_overhead``,
@@ -85,6 +88,10 @@ class Config:
     solve_dtype: str = "float32"
     # Distribution.
     mesh_shape: Optional[Tuple[int, ...]] = None
+    # Where constructors and loaders build when the caller names no device
+    # (default_device): the card. "cpu" (or BSM_DEVICE=cpu) asks for the
+    # CPU; any torch device string ("cuda:1") is taken.
+    device: str = "cuda"
 
     @staticmethod
     def from_env(base: Optional["Config"] = None) -> "Config":
@@ -126,6 +133,41 @@ def get_config() -> Config:
 def set_config(cfg: Config) -> None:
     global _config
     _config = cfg
+
+
+class NoDefaultDevice(RuntimeError):
+    """The configured default device is not present on this machine."""
+
+
+def default_device(device=None):
+    """The ``torch.device`` a constructor or loader builds on: ``device``
+    when the caller gave one, else the configured ``Config.device`` (the
+    card by default). A configured CUDA device on a machine without one
+    raises; nothing falls back to the CPU unasked."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    dev = torch.device(get_config().device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise NoDefaultDevice(
+            f"the default device is {get_config().device!r} and "
+            f"torch.cuda.is_available() is False; to run on the CPU pass "
+            f"device=\"cpu\" or set BSM_DEVICE=cpu (or "
+            f"utils.config.use_device(\"cpu\"))")
+    return dev
+
+
+@contextlib.contextmanager
+def use_device(device: str) -> Iterator[None]:
+    """Make ``device`` the default device inside the block (the tests ask
+    for ``"cpu"`` this way); the previous configuration returns on exit."""
+    prev = get_config()
+    set_config(dataclasses.replace(prev, device=str(device)))
+    try:
+        yield
+    finally:
+        set_config(prev)
 
 
 @contextlib.contextmanager

@@ -15,8 +15,9 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. Device: the card's name and ``nvidia-smi``'s name and power limit.
-2. Build: the K1 (BSR), K2 (streaming), K3 (run reads), K4/K5
-   (add-back) and K6 (per-entry FMA) kernels from
+2. Build: the K1 (BSR), K2 (streaming: tile, sliced and pack kernels), K3
+   (run reads), K4/K5 (add-back) and K6 (per-entry FMA: atomic and cluster
+   kernels) kernels from
    ``basic_sparse_matrix_tpu_torch/csrc`` with nvcc, one process per
    source, timed; the ptxas register/spill lines.
 3. Kernel vs plain: each kernel and its plain PyTorch version on the card
@@ -27,7 +28,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    all blocks, its launch configuration (registers, shared memory, spill
    bytes, blocks per SM) and, at each shape, the first rows of its
    HIGHEST output against a float64 product (``max|err| <= 1e-5 ·
-   max|ref|``).
+   max|ref|``). K2: BOTH kernels of ``spmm_stream`` (tile and sliced)
+   against ``spmm_stream_reference`` at the main shape, timed in turns
+   (plain-tile-sliced-sliced-tile-plain, median of 5 with min and max); the
+   sliced kernel must be bitwise equal across two calls and be the one
+   ``spmm_stream`` dispatches to there; the slice-width sweep (w = 4, 8, 16,
+   32, packed and unpacked B, strided and slice-major C; every time with
+   its pack and unpack inside), the pack kernel alone, and the card's
+   gather rate for 32-byte pieces by array size; a ``spmm_stream`` call on
+   a B that fits the L2 budget and on a plan with several k tiles, which
+   the dispatch sends to the tile kernel, each held to the plain version.
+   The ``spmm_stream`` entry of ``kernels`` reports the dispatched kernel
+   and names it.
 4. Main path: ``mul_dense`` on three matrices, one per rung of the
    ``spmm_auto`` ladder, each checked against the plain gather/segment sum
    on the card (in row chunks):
@@ -38,7 +50,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    * stream rung (K2) — 1M×1M with 32 uniformly random columns per row
      (≈32M stored), × a 512-column RHS (the 1M-row SpMM study config).
    The kernel launch counters are set to 0 right before this phase and read
-   right after; each kernel must have been launched by its rung.
+   right after; each kernel must have been launched by its rung, and the
+   stream rung must have launched the sliced K2 kernel twice. The three
+   operands are built with no ``device`` argument and must lie on the card
+   (the configured default device).
 5. A small matrix through ``mul_dense`` against a float64 numpy product on
    the host.
 6. Solver main path: the 33³ 7-point Laplacian (n = 35,937, the JAX
@@ -114,13 +129,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     a temporary directory, entry for entry. (``save_direct`` →
     ``load_direct`` → solve runs in phase 10, on each banded solver, under
     the same error limits.)
-18. K6: ``entry_fma`` against ``entry_fma_reference`` at the probe's default
-    shape (8192 entries, 4096 rows, 128 lanes), at 512 lanes and with every
-    entry in one row (max abs error < 1e-4 of the larger of 1 and
-    max|ref|); kernel, plain and ``torch.sparse.mm`` (COO) times; then the
-    probe (``probes/entry_fma_probe.py``), K6's main path: ns per entry
-    beside K2's on the same entries, and beside K2's at its own shape from
-    phase 3. The launch counter is set to 0 right before the probe and read
+18. K6: BOTH kernels of ``entry_fma`` (atomic and cluster) against
+    ``entry_fma_reference`` at the probe's default shape (8192 entries,
+    4096 rows, 128 lanes), at 512 lanes and with every entry in one row
+    (max abs error < 1e-4 of the larger of 1 and max|ref|); each kernel's,
+    the plain version's and ``torch.sparse.mm``'s (COO) times; at K2's own
+    entries (phase 3) the atomic kernel runs and the cluster kernel must
+    refuse the 2 GB tile; then the probe (``probes/entry_fma_probe.py``),
+    K6's main path: ns per entry of each kernel beside K2's on the same
+    entries, and beside K2's at its own shape from phase 3. The launch counter is set to 0 right before the probe and read
     right after.
 
 Every kernel's line also carries ``bound_ms``, the least time the card
@@ -179,7 +196,7 @@ def sd_mul_matrix(rng, dev):
     n, inserts = 1000, 900_000
     a = CSR.from_coo_arrays(
         (n, n), rng.integers(0, n, inserts), rng.integers(0, n, inserts),
-        rng.integers(0, 255, inserts).astype(np.float32), device=dev)
+        rng.integers(0, 255, inserts).astype(np.float32))
     b = torch.as_tensor(rng.integers(0, 255, (n, 128)).astype(np.float32),
                         device=dev)
     return a, b
@@ -198,7 +215,7 @@ def block_sparse_matrix(rng, dev, gen):
     c = (bc[:, None, None] * bk + np.arange(bk)[None, None, :])
     r, c = np.broadcast_arrays(r, c)
     vals = rng.standard_normal(r.size).astype(np.float32)
-    a = CSR.from_coo_arrays((n, n), r.ravel(), c.ravel(), vals, device=dev)
+    a = CSR.from_coo_arrays((n, n), r.ravel(), c.ravel(), vals)
     b = torch.randn((n, 512), generator=gen, device=dev)
     return a, b
 
@@ -212,7 +229,7 @@ def hypersparse_matrix(rng, dev, gen):
     rows = np.repeat(np.arange(n), per)
     cols = rng.integers(0, n, n * per)
     vals = rng.standard_normal(n * per).astype(np.float32)
-    a = CSR.from_coo_arrays((n, n), rows, cols, vals, device=dev)
+    a = CSR.from_coo_arrays((n, n), rows, cols, vals)
     b = torch.randn((n, 512), generator=gen, device=dev)
     return a, b
 
@@ -427,7 +444,10 @@ def solver_main_path(dev) -> dict:
     from basic_sparse_matrix_tpu_torch.runtime import symbolic
 
     n, r, c, v = laplacian_3d(SOLVER_K)
-    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    a = CSR.from_coo_arrays((n, n), r, c, v)    # the default device
+    if a.device.type != "cuda":
+        raise AssertionError(f"CSR.from_coo_arrays built on {a.device}, not "
+                             f"on the card")
     rng = np.random.default_rng(SEED + 2)
     x_true = rng.standard_normal((n, 8))
     b_host = np.zeros((n, 8))
@@ -553,6 +573,152 @@ def time_pair(kern, plain, iters: int):
     ms_k2 = cuda_time_ms(kern, warmup=0, iters=iters)
     ms_p2 = cuda_time_ms(plain, warmup=0, iters=iters)
     return min(ms_k1, ms_k2), min(ms_p1, ms_p2), (ms_p1, ms_k1, ms_k2, ms_p2)
+
+
+def time_turns(plain, kerns: dict, iters: int) -> dict:
+    """CUDA-event times in turns plain, kernels, kernels reversed, plain:
+    for each name the better median of its two turns with that turn's min
+    and max, ``{"name": {"ms", "min_ms", "max_ms", "turns"}}``."""
+    from basic_sparse_matrix_tpu_torch.probes.stream_slice_probe import (
+        event_times_ms)
+
+    order = ["plain", *kerns, *reversed(list(kerns)), "plain"]
+    fns = {"plain": plain, **kerns}
+    seen = {}
+    for name in order:
+        seen.setdefault(name, []).append(
+            event_times_ms(fns[name], iters, warmup=1))
+    return {name: {**min(turns, key=lambda t: t["ms"]),
+                   "turns": [t["ms"] for t in turns]}
+            for name, turns in seen.items()}
+
+
+def stream_kernels_vs_plain(plan, a_st, b_st) -> tuple:
+    """Phase 3 for K2: both kernels of ``spmm_stream`` against the plain
+    version at the main shape, timed in turns; the slice-width sweep, the
+    pack kernel alone and the L2 gather rate; K6 on the same entries; a call
+    on operands the dispatch sends to the tile kernel. Returns the
+    ``kernels`` entry of the kernel the main path dispatches to and its ns
+    per entry."""
+    from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
+    from basic_sparse_matrix_tpu_torch.probes import stream_slice_probe as sp
+
+    dev = b_st.device
+    k, n = (int(x) for x in b_st.shape)
+    _, longest = k2.cell_row_pointers(plan)
+    picked, w = k2.pick_stream_kernel(plan.rows, k, n, plan.n_kt,
+                                      longest)
+    log(f"  spmm_stream dispatch at {plan.rows}x{k} x {n}: longest row "
+        f"{longest} slots, B {k * n * 4 / 2**20:.0f} MiB against an L2 budget "
+        f"of {k2.L2_SLICE_BUDGET_BYTES / 2**20:.0f} MiB -> {picked!r}, w {w}")
+    if picked != "sliced":
+        raise AssertionError("the main shape did not dispatch to the sliced "
+                             "kernel")
+    ref = k2.spmm_stream_reference(plan, b_st)
+    runs = {"tile": lambda: k2.spmm_stream_tile(plan, b_st),
+            "sliced": lambda: k2.spmm_stream_sliced(plan, b_st, w)}
+    outs, errs = {}, {}
+    for name, run in runs.items():
+        outs[name] = run()
+        torch.cuda.synchronize()
+        errs[name] = compare(f"spmm_stream {name} kernel vs plain",
+                             outs[name], ref)
+    same = bool(torch.equal(outs["sliced"], runs["sliced"]()))
+    log(f"  sliced kernel bitwise equal across two calls: {same}; bitwise "
+        f"equal to the tile kernel: "
+        f"{bool(torch.equal(outs['sliced'], outs['tile']))}")
+    if not same:
+        raise AssertionError("the sliced kernel is not repeatable")
+    before = dict(k2.LAUNCHES_BY_KERNEL)
+    out_k = k2.spmm_stream(plan, b_st)
+    if k2.LAUNCHES_BY_KERNEL["sliced"] != before["sliced"] + 1 \
+            or not torch.equal(out_k, outs["sliced"]):
+        raise AssertionError("spmm_stream did not launch the sliced kernel")
+    del ref, outs
+    times = time_turns(lambda: k2.spmm_stream_reference(plan, b_st), runs, 5)
+    for name, t in times.items():
+        log(f"  spmm_stream {name}: {t['ms']:.4f} ms (min {t['min_ms']:.4f}, "
+            f"max {t['max_ms']:.4f}; medians of its two turns "
+            + " / ".join(f"{x:.4f}" for x in t["turns"])
+            + "; median of 5, plain-tile-sliced-sliced-tile-plain)")
+
+    def csr_library():
+        t = torch.sparse_csr_tensor(a_st.indptr, a_st.indices, a_st.values,
+                                    size=a_st.shape)
+        return lambda: torch.sparse.mm(t, b_st)
+    lib_ms = library_time("torch.sparse.mm(sparse_csr_tensor 1M x 1M, B)",
+                          csr_library, out_k, 5)
+    slots = plan.ii.numel()
+    ms = times[picked]["ms"]
+    # the slot arrays and B read once, C written once; one multiply-add per
+    # stored entry and column
+    entry = {"name": "spmm_stream", "route": "cuda",
+             "source": "basic_sparse_matrix_tpu_torch/csrc/spmm_stream.cu",
+             "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
+                         "stream_kernel.py:178",
+             "launches": 0, "max_abs_err": errs[picked], "ms": ms,
+             "plain_ms": times["plain"]["ms"],
+             **bound(12 * slots + 4 * (b_st.numel() + plan.rows * n),
+                     2.0 * plan.nnz * n),
+             "library_ms": lib_ms,
+             "kernel": f"{picked} (w = {w}, B read as it lies)",
+             "min_ms": times[picked]["min_ms"],
+             "max_ms": times[picked]["max_ms"],
+             "tile_kernel_ms": times["tile"]["ms"]}
+    ns_per_entry = ms * 1e6 / plan.nnz
+    k6_on_stream_entries(plan, b_st, out_k, ns_per_entry)
+    del out_k
+    gather_bytes = plan.nnz * (8 + 4 * n) + plan.rows * n * 4
+    log(f"  spmm_stream: {gather_bytes / ms / 1e6:.1f} GB/s by the gather "
+        f"byte model nnz*(8+4n) + rows*n*4 (tile kernel "
+        f"{gather_bytes / times['tile']['ms'] / 1e6:.1f})")
+
+    log("  slice-width sweep (every sliced time includes the pack where B is "
+        "packed and the unpack where C is slice-major; median / min / max "
+        "of 3):")
+    for rep in sp.sweep(plan, b_st, iters=3):
+        what = rep["kernel"] if rep["kernel"] != "sliced" else (
+            f"sliced w {rep['w']}, B "
+            f"{'packed' if rep['packed_b'] else 'as it lies'}, C "
+            f"{'slice-major + unpack' if rep['c_slice_major'] else 'strided'}"
+            f", slice {rep['slice_bytes'] / 1e6:.0f} MB")
+        if rep["kernel"] == "pack":
+            what = f"pack alone, w {rep['w']}"
+        log(f"    {what}: {rep['ms']:.3f} / {rep['min_ms']:.3f} / "
+            f"{rep['max_ms']:.3f} ms")
+    rates = {nbytes: sp.l2_gather_gbps(nbytes, dev)
+             for nbytes in sp.GATHER_ARRAY_BYTES}
+    log("  gather of 32-byte pieces at hashed addresses, GB/s by array size: "
+        + ", ".join(f"{nb >> 20} MiB {r:.0f}" for nb, r in rates.items()))
+    l2_rate = rates[32 << 20]
+    log(f"  floor of gathering this run's {plan.nnz} x {n * 4}-byte rows of B "
+        f"from L2 at the 32 MiB rate: "
+        f"{plan.nnz * n * 4 / l2_rate / 1e6:.2f} ms")
+
+    # operands the dispatch sends to the tile kernel: a B that fits the L2
+    # budget, and a plan with several k tiles
+    rng = np.random.default_rng(SEED + 20)
+    rows_s = 20_000
+    ri = np.repeat(np.arange(rows_s), 16)
+    ci = rng.integers(0, rows_s, ri.size)
+    vi = rng.standard_normal(ri.size).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    for label, tile_k, n_s in (("B fits the L2 budget", rows_s, 128),
+                               ("8 k tiles", 2500, 512)):
+        small = k2.build_stream_plan(ri, ci, vi, rows_s, rows_s,
+                                     tile_m=k2.pick_tile_m(rows_s, n_s),
+                                     tile_k=tile_k, device=dev)
+        b_s = torch.randn((rows_s, n_s), generator=gen, device=dev)
+        before = dict(k2.LAUNCHES_BY_KERNEL)
+        out = k2.spmm_stream(small, b_s)
+        torch.cuda.synchronize()
+        if (k2.LAUNCHES_BY_KERNEL["tile"], k2.LAUNCHES_BY_KERNEL["sliced"]) \
+                != (before["tile"] + 1, before["sliced"]):
+            raise AssertionError(f"{label}: not the tile kernel")
+        compare(f"spmm_stream tile kernel by dispatch ({label}: "
+                f"{rows_s}x{rows_s}, 16 a row, x {n_s}) vs plain", out,
+                k2.spmm_stream_reference(small, b_s))
+    return entry, ns_per_entry
 
 
 def solver_kernels_vs_plain(solver, gen) -> list:
@@ -1030,7 +1196,8 @@ def iterative_path(dev) -> None:
     v0 = np.random.default_rng(SEED + 9).standard_normal(n).astype(
         np.float32)
     card = _ritz_values(op._lanczos, torch.as_tensor(v0, device=dev), 32)
-    cpu_setup = LanczosSetup.build(CSR.from_coo_arrays((n, n), r, c, v))
+    cpu_setup = LanczosSetup.build(
+        CSR.from_coo_arrays((n, n), r, c, v, device="cpu"))
     cpu = _ritz_values(cpu_setup, torch.as_tensor(v0), 32)
     compare("Lanczos Ritz values (k = 32, one seeded v0), card vs CPU",
             card.cpu(), cpu, rtol=RITZ_RTOL, atol_of_max=RITZ_ATOL_OF_MAX)
@@ -1163,11 +1330,24 @@ def k6_on_stream_entries(plan, b, out_k2, k2_ns: float) -> None:
     ii = (plan.ii[:, 0, :] + base[:, None]).reshape(-1).contiguous()
     kk = plan.kk.reshape(-1)
     vv = plan.vv.reshape(-1)
+    before = dict(k6.LAUNCHES_BY_KERNEL)
     out = k6.entry_fma(ii, kk, vv, b, plan.rows)
     torch.cuda.synchronize()
     compare("entry_fma on the stream plan's entries vs spmm_stream", out,
             out_k2)
     del out
+    # a 2 GB tile fits no cluster's shared memory: the atomic kernel, and the
+    # cluster kernel refuses
+    if k6.LAUNCHES_BY_KERNEL["atomic"] != before["atomic"] + 1 \
+            or k6.cluster_geometry(plan.rows, int(b.shape[1])) is not None:
+        raise AssertionError("entry_fma at K2's shape: not the atomic kernel")
+    try:
+        k6.entry_fma(ii, kk, vv, b, plan.rows, check_range=False,
+                     kernel="cluster")
+    except ValueError as err:
+        log(f"  entry_fma cluster kernel at this shape: refused ({err})")
+    else:
+        raise AssertionError("the cluster kernel took a tile that cannot fit")
     ms = cuda_time_ms(lambda: k6.entry_fma(ii, kk, vv, b, plan.rows,
                                            check_range=False),
                       warmup=1, iters=3)
@@ -1366,25 +1546,40 @@ def k6_phase(dev, k2_main: float) -> dict:
             ii_h[:] = hot
         ii, kk, vv, b = (torch.as_tensor(x, device=dev)
                          for x in (ii_h, kk_h, vv_h, b_h))
-        out = k6.entry_fma(ii, kk, vv, b, rows)
-        torch.cuda.synchronize()
         ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
-        err = float((out - ref).abs().max())
         scale = max(float(ref.abs().max()), 1.0)
-        err64 = float(np.abs(out.double().cpu().numpy()
-                             - probe.oracle(ii_h, kk_h, vv_h, b_h, rows)).max())
-        ms, plain_ms, four = time_pair(
-            lambda: k6.entry_fma(ii, kk, vv, b, rows, check_range=False),
-            lambda: k6.entry_fma_reference(ii, kk, vv, b, rows), 50)
-        log(f"  entry_fma, {label} (E {entries}, R {rows}, lanes {lanes}): "
-            f"max abs err vs plain {err:.3e}, vs float64 {err64:.3e} (limit "
-            f"{K6_MAX_ABS_ERR:g} x {scale:.3g}); kernel {four[1]:.4f} / "
-            f"{four[2]:.4f} ms, plain {four[0]:.4f} / {four[3]:.4f} ms "
-            f"(median of 50, plain-kernel-kernel-plain, one call per event "
-            f"pair at the host's pace)")
-        if not (err < K6_MAX_ABS_ERR * scale
-                and err64 < K6_MAX_ABS_ERR * scale):
-            raise AssertionError(f"entry_fma {label}: error over the limit")
+        ref64 = probe.oracle(ii_h, kk_h, vv_h, b_h, rows)
+        picked = k6.DEFAULT_KERNEL
+        geo = k6.cluster_geometry(rows, lanes)
+        errs = {}
+        for name in ("atomic", "cluster"):
+            before = dict(k6.LAUNCHES_BY_KERNEL)
+            out = k6.entry_fma(ii, kk, vv, b, rows, kernel=name)
+            torch.cuda.synchronize()
+            if k6.LAUNCHES_BY_KERNEL[name] != before[name] + 1:
+                raise AssertionError(f"entry_fma {name}: not launched")
+            errs[name] = float((out - ref).abs().max())
+            err64 = float(np.abs(out.double().cpu().numpy() - ref64).max())
+            log(f"  entry_fma {name} kernel, {label} (E {entries}, R {rows}, "
+                f"lanes {lanes}): max abs err vs plain {errs[name]:.3e}, vs "
+                f"float64 {err64:.3e} (limit {K6_MAX_ABS_ERR:g} x "
+                f"{scale:.3g})")
+            if not (errs[name] < K6_MAX_ABS_ERR * scale
+                    and err64 < K6_MAX_ABS_ERR * scale):
+                raise AssertionError(f"entry_fma {name} {label}: error over "
+                                     f"the limit")
+        err = errs[picked]
+        times = time_turns(
+            lambda: k6.entry_fma_reference(ii, kk, vv, b, rows),
+            {name: (lambda name=name: k6.entry_fma(
+                ii, kk, vv, b, rows, check_range=False, kernel=name))
+             for name in ("atomic", "cluster")}, 50)
+        ms, plain_ms = times[picked]["ms"], times["plain"]["ms"]
+        log(f"  entry_fma, {label}: dispatch takes {picked!r}; cluster cut "
+            f"{geo}; a call at the host's pace, ms (min, max): "
+            + "; ".join(f"{name} {t['ms']:.4f} ({t['min_ms']:.4f}, "
+                        f"{t['max_ms']:.4f})" for name, t in times.items())
+            + " (median of 50, plain-atomic-cluster-cluster-atomic-plain)")
         worst = max(worst, err / scale)
         if hot is None and lanes == 128:
             def coo_library():
@@ -1393,7 +1588,7 @@ def k6_phase(dev, k2_main: float) -> dict:
                     (rows, rows)).coalesce()
                 return lambda: torch.sparse.mm(t, b)
             lib_ms = library_time("torch.sparse.mm(sparse_coo_tensor of the "
-                                  "entries, B)", coo_library, out, 50)
+                                  "entries, B)", coo_library, ref, 50)
             # the entries and B read once, C written once; one
             # multiply-add per entry and lane
             timing = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1402,15 +1597,30 @@ def k6_phase(dev, k2_main: float) -> dict:
                       "library_ms": lib_ms}
     # the probe is K6's main path: counts set to 0 right before, read after
     zero_launches()
+    by_kernel = dict(k6.LAUNCHES_BY_KERNEL)
     reports = [probe.measure(entries, rows, lanes, dev)
                for lanes in probe.DEFAULT_LANES]
+    reports.append(probe.measure(entries, rows, probe.DEFAULT_LANES[0], dev,
+                                 hot_row=17))
     launches = read_launches()
+    # the probe runs both K6 kernels: the count reported is that of the
+    # kernel the dispatch takes
+    by_kernel = {name: count - by_kernel[name]
+                 for name, count in k6.LAUNCHES_BY_KERNEL.items()}
+    if sum(by_kernel.values()) != launches["entry_fma"]:
+        raise AssertionError(f"entry_fma launches {launches['entry_fma']} "
+                             f"are not the kernels' {by_kernel}")
     for rep in reports:
-        log(f"  probe, lanes {rep['lanes']}: entry_fma {rep['value']:.3f} ns "
-            f"per entry (kernel {rep['kernel_ms'] * 1e3:.2f} us with the "
-            f"stream kept busy, {rep['call_ms'] * 1e3:.2f} us a call at the "
-            f"host's pace); spmm_stream on the same entries "
-            f"{rep['stream_kernel_ns']:.3f} ns per entry (kernel "
+        both = "; ".join(
+            f"{name} kernel {t['kernel_ms'] * 1e3:.2f} us with the stream "
+            f"kept busy, {t['call_ms'] * 1e3:.2f} us a call"
+            for name, t in rep["by_kernel"].items())
+        log(f"  probe, lanes {rep['lanes']}"
+            + (f", every entry in row {rep['hot_row']}"
+               if rep["hot_row"] is not None else "")
+            + f": entry_fma ({rep['kernel']} kernel by dispatch) "
+            f"{rep['value']:.3f} ns per entry; {both}; spmm_stream on the "
+            f"same entries {rep['stream_kernel_ns']:.3f} ns per entry (kernel "
             f"{rep['stream_kernel_ms'] * 1e3:.2f} us, "
             f"{rep['stream_call_ms'] * 1e3:.2f} us a call; tile_m "
             f"{rep['stream_tile_m']}, cellmax {rep['stream_cellmax']}); "
@@ -1423,7 +1633,8 @@ def k6_phase(dev, k2_main: float) -> dict:
     return {"name": "entry_fma", "route": "cuda",
             "source": "basic_sparse_matrix_tpu_torch/csrc/entry_fma.cu",
             "replaces": "benchmarks/entry_fma_probe.py:67",
-            "launches": launches["entry_fma"], **timing}
+            "launches": by_kernel[k6.DEFAULT_KERNEL], **timing,
+            "kernel": k6.DEFAULT_KERNEL, "launches_by_kernel": by_kernel}
 
 
 def main() -> None:
@@ -1465,7 +1676,11 @@ def main() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     for name, a in (("dense", a_dense), ("bsr", a_bsr), ("stream", a_st)):
         log(f"  {name}: {a.rows}x{a.cols}, stored {a.stored}, "
-            f"density {a.get_density():.3e}")
+            f"density {a.get_density():.3e}, on {a.device} (no device named: "
+            f"the configured default)")
+        if a.device.type != "cuda":
+            raise AssertionError(f"{name}: a constructor with no device "
+                                 f"argument built on {a.device}")
 
     t0 = time.perf_counter()
     bsr = k1.cached_bsr(a_bsr)
@@ -1523,44 +1738,8 @@ def main() -> None:
         del other, b_other
         torch.cuda.empty_cache()
 
-    out_k = k2.spmm_stream(plan, b_st)
-    torch.cuda.synchronize()
-    err = compare("spmm_stream kernel vs plain", out_k,
-                  k2.spmm_stream_reference(plan, b_st))
-    ms, plain_ms, four = time_pair(lambda: k2.spmm_stream(plan, b_st),
-                                   lambda: k2.spmm_stream_reference(plan,
-                                                                    b_st), 5)
-    log(f"  spmm_stream: kernel {four[1]:.4f} / {four[2]:.4f} ms, plain "
-        f"{four[0]:.4f} / {four[3]:.4f} ms (median of 5, "
-        f"plain-kernel-kernel-plain)")
-
-    def csr_library():
-        t = torch.sparse_csr_tensor(a_st.indptr, a_st.indices, a_st.values,
-                                    size=a_st.shape)
-        return lambda: torch.sparse.mm(t, b_st)
-    lib_ms = library_time("torch.sparse.mm(sparse_csr_tensor 1M x 1M, B)",
-                          csr_library, out_k, 5)
-    slots = plan.ii.numel()
-    # the slot arrays and B read once, C written once; one multiply-add per
-    # stored entry and column
-    kernels.append({"name": "spmm_stream", "route": "cuda",
-                    "source": "basic_sparse_matrix_tpu_torch/csrc/"
-                              "spmm_stream.cu",
-                    "replaces": "basic_sparse_matrix_tpu/ops/pallas/"
-                                "stream_kernel.py:178",
-                    "launches": 0, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms,
-                    **bound(12 * slots + 4 * (b_st.numel()
-                                              + plan.rows * b_st.shape[1]),
-                            2.0 * plan.nnz * b_st.shape[1]),
-                    "library_ms": lib_ms})
-    k2_ns_per_entry = ms * 1e6 / plan.nnz
-    k6_on_stream_entries(plan, b_st, out_k, k2_ns_per_entry)
-    del out_k
-    gather_bytes = plan.nnz * (8 + 4 * b_st.shape[1]) \
-        + plan.rows * b_st.shape[1] * 4
-    log(f"  spmm_stream: {gather_bytes / kernels[1]['ms'] / 1e6:.1f} GB/s by "
-        f"the gather byte model nnz*(8+4n) + rows*n*4")
+    k2_entry, k2_ns_per_entry = stream_kernels_vs_plain(plan, a_st, b_st)
+    kernels.append(k2_entry)
 
     # ---- 4. main path through mul_dense ---------------------------------
     log("main path (mul_dense, twice per rung: the first call includes "
@@ -1571,6 +1750,7 @@ def main() -> None:
                              ("bsr", a_bsr, b_bsr, (2, 0)),
                              ("stream", a_st, b_st, (0, 2))):
         before = (k1.LAUNCHES, k2.LAUNCHES)
+        sliced_before = k2.LAUNCHES_BY_KERNEL["sliced"]
         times = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1585,6 +1765,10 @@ def main() -> None:
         if got != want:
             raise AssertionError(f"{name} rung launched (K1, K2) = {got}, "
                                  f"expected {want}")
+        if name == "stream" and k2.LAUNCHES_BY_KERNEL["sliced"] \
+                != sliced_before + 2:
+            raise AssertionError("the stream rung did not launch the sliced "
+                                 "K2 kernel twice")
         checks.append((name, a, b, out))
     launches = read_launches()
     if any(launches[k] for k in ("runs_read", "addback_resident",
@@ -1607,8 +1791,7 @@ def main() -> None:
     d = ((small.random((257, 300)) < 0.05)
          * small.standard_normal((257, 300))).astype(np.float32)
     bs = small.standard_normal((300, 40)).astype(np.float32)
-    out = mul_dense(CSR.from_dense(d, device=dev),
-                    torch.as_tensor(bs, device=dev))
+    out = mul_dense(CSR.from_dense(d), torch.as_tensor(bs, device=dev))
     compare("small mul_dense vs numpy float64",
             out, torch.as_tensor(d.astype(np.float64) @ bs,
                                  device=dev).float())

@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes (unaligned rows, columns and RHS
 widths, thin and fat BSR tiles, both vector widths and several column
-slices of the streaming kernel; unaligned run starts, dead slots, runs past
+slices of the streaming tile kernel, every slice width of the sliced one
+and the dispatch between the two; unaligned run starts, dead slots, runs past
 the end and overlapping add-back spans for the supernodal kernels; ragged
 entry counts, widths that are no multiple of 4 or 32 and one hot row for
-the per-entry FMA).
+both kernels of the per-entry FMA).
 
 These need a CUDA device and nvcc; without a device every test skips. On a
 GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -160,6 +161,7 @@ def test_spmm_bsr_kernel_config_fits_the_card(cuda, bm, precision):
                                               else (64, 128))
 
 
+@pytest.mark.parametrize("kernel", ["tile", "sliced"])
 @pytest.mark.parametrize(
     "rows,cols,nnz,n_rhs,tile_m,tile_k",
     [
@@ -172,25 +174,146 @@ def test_spmm_bsr_kernel_config_fits_the_card(cuda, bm, precision):
     ],
 )
 def test_spmm_stream_kernel_matches_plain(cuda, rows, cols, nnz, n_rhs,
-                                          tile_m, tile_k):
+                                          tile_m, tile_k, kernel):
+    """Both K2 kernels on the same cases. The sliced kernel takes the
+    entries in row order (what ``stream_plan_from_ell`` gives it), under
+    one k tile, at every slice width, packed and unpacked, and refuses a
+    plan with several k tiles and a width that is no multiple of 4."""
     rng = np.random.default_rng(7)
     ri = rng.integers(0, rows, nnz)
     ci = rng.integers(0, cols, nnz)
     v = rng.standard_normal(nnz).astype(np.float32)
     v[::17] = 0.0
+    if kernel == "sliced":
+        ri = np.sort(ri)           # row order; the k tiles stay as they are
     plan = k2.build_stream_plan(ri, ci, v, rows, cols, tile_m=tile_m,
                                 tile_k=tile_k, device=cuda)
     b = torch.as_tensor(rng.standard_normal((cols, n_rhs)).astype(np.float32),
                         device=cuda)
-    before = k2.LAUNCHES
-    out = k2.spmm_stream(plan, b)
-    torch.cuda.synchronize()
-    assert k2.LAUNCHES == before + 1
-    _close(out, k2.spmm_stream_reference(plan, b))
     dense = np.zeros((rows, cols), np.float64)
     np.add.at(dense, (ri, ci), v)
-    _close(out, torch.as_tensor(dense @ b.cpu().numpy().astype(np.float64),
-                                device=cuda).float())
+    ref64 = torch.as_tensor(dense @ b.cpu().numpy().astype(np.float64),
+                            device=cuda).float()
+    ref = k2.spmm_stream_reference(plan, b)
+    if kernel == "tile":
+        runs = [lambda: k2.spmm_stream(plan, b)]
+    elif n_rhs % 4 or plan.n_kt != 1:
+        with pytest.raises(ValueError):
+            k2.spmm_stream_sliced(plan, b, 8)
+        return
+    else:
+        runs = [lambda w=w, pack=pack, cm=cm: k2.spmm_stream_sliced(
+            plan, b, w, pack=pack, c_slice_major=cm)
+            for w in k2.SLICE_WIDTHS
+            for pack, cm in ((True, False), (False, False), (True, True))]
+    for run in runs:
+        before = (k2.LAUNCHES, k2.LAUNCHES_BY_KERNEL[kernel])
+        out = run()
+        torch.cuda.synchronize()
+        assert (k2.LAUNCHES, k2.LAUNCHES_BY_KERNEL[kernel]) == (
+            before[0] + 1, before[1] + 1)
+        _close(out, ref)
+        _close(out, ref64)
+        assert torch.equal(out, run())      # no atomics: bitwise repeatable
+
+
+def _row_sorted_plan(rng, rows, cols, per_row, tile_m, cuda, long_row=None,
+                     empty=None):
+    """A one-k-tile plan from entries in row order: ``per_row`` random
+    columns a row, optionally one row of ``long_row`` entries and a range
+    of rows left empty."""
+    counts = np.full(rows, per_row)
+    if long_row is not None:
+        counts[rows // 3] = long_row
+    if empty is not None:
+        counts[empty[0]:empty[1]] = 0
+    ri = np.repeat(np.arange(rows), counts)
+    ci = rng.integers(0, cols, ri.size)
+    v = rng.standard_normal(ri.size).astype(np.float32)
+    v[v == 0] = 1.0
+    return k2.build_stream_plan(ri, ci, v, rows, cols, tile_m=tile_m,
+                                tile_k=cols, device=cuda)
+
+
+@pytest.mark.parametrize(
+    "rows,cols,per_row,n_rhs,budget,want,long_row,empty,force_w",
+    [
+        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, 4),
+        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, 8),
+        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, 32),
+        (3000, 5000, 8, 20, 1 << 18, ("sliced", 32), None, None, 8),  # N % w
+        (3000, 5000, 8, 40, 1 << 18, ("sliced", 32), None, None, 16),
+        (3000, 5000, 12, 64, 1 << 20, ("tile", 0), 1200, None, 8),  # 100x
+        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, (32, 48), 8),
+        (3000, 5000, 8, 64, 5000 * 64 * 4, ("tile", 0), None, None, 32),
+        (3000, 5000, 8, 62, 1 << 20, ("tile", 0), None, None, None),  # N % 4
+    ],
+)
+def test_spmm_stream_dispatch_on_the_card(cuda, monkeypatch, rows, cols,
+                                          per_row, n_rhs, budget, want,
+                                          long_row, empty, force_w):
+    """``spmm_stream`` crosses from one kernel to the other by shape alone
+    (the L2 budget is lowered to bring the crossing to a small operand: a
+    ``B`` over the budget takes the sliced kernel at w = 32, one that fits
+    it, a ragged width or a row 100x the average the tile kernel); the
+    kernel it takes and the sliced kernel at a forced width agree with the
+    plain version and the tile kernel, and the result is bitwise equal
+    across two calls."""
+    monkeypatch.setattr(k2, "L2_SLICE_BUDGET_BYTES", budget)
+    rng = np.random.default_rng(11)
+    plan = _row_sorted_plan(rng, rows, cols, per_row, 16, cuda, long_row,
+                            empty)
+    b = torch.as_tensor(rng.standard_normal((cols, n_rhs)).astype(np.float32),
+                        device=cuda)
+    _, longest = k2.cell_row_pointers(plan)
+    assert longest == (long_row or per_row)
+    assert k2.pick_stream_kernel(rows, cols, n_rhs, plan.n_kt,
+                                 longest) == want
+    before = dict(k2.LAUNCHES_BY_KERNEL)
+    out = k2.spmm_stream(plan, b)
+    torch.cuda.synchronize()
+    other = "tile" if want[0] == "sliced" else "sliced"
+    assert k2.LAUNCHES_BY_KERNEL[want[0]] == before[want[0]] + 1
+    assert k2.LAUNCHES_BY_KERNEL[other] == before[other]
+    ref = k2.spmm_stream_reference(plan, b)
+    _close(out, ref)
+    assert torch.equal(out, k2.spmm_stream(plan, b))
+    if force_w is not None:
+        forced = k2.spmm_stream_sliced(plan, b, force_w)
+        _close(forced, ref)
+        _close(forced, k2.spmm_stream_tile(plan, b))
+        assert torch.equal(forced, k2.spmm_stream_sliced(plan, b, force_w))
+    if empty is not None:
+        assert not out[empty[0]:empty[1]].any()
+
+
+def test_spmm_stream_unsorted_cells_keep_the_tile_kernel(cuda, monkeypatch):
+    """Entries in no row order leave cells unsorted: no row pointers, the
+    dispatch stays with the tile kernel and the sliced kernel refuses."""
+    monkeypatch.setattr(k2, "L2_SLICE_BUDGET_BYTES", 1 << 18)
+    rng = np.random.default_rng(12)
+    ri, ci = rng.integers(0, 3000, 20000), rng.integers(0, 5000, 20000)
+    v = rng.standard_normal(20000).astype(np.float32)
+    plan = k2.build_stream_plan(ri, ci, v, 3000, 5000, tile_m=16,
+                                tile_k=5000, device=cuda)
+    assert k2.cell_row_pointers(plan)[0] is None
+    b = torch.randn((5000, 64), device=cuda)
+    before = dict(k2.LAUNCHES_BY_KERNEL)
+    _close(k2.spmm_stream(plan, b), k2.spmm_stream_reference(plan, b))
+    assert k2.LAUNCHES_BY_KERNEL["tile"] == before["tile"] + 1
+    with pytest.raises(ValueError):
+        k2.spmm_stream_sliced(plan, b, 8)
+    assert k2.LAUNCHES_BY_KERNEL["sliced"] == before["sliced"]
+
+
+def test_pack_slices_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(13)
+    for k, n in ((1000, 64), (777, 20), (5, 512), (3000, 36)):
+        b = torch.as_tensor(rng.standard_normal((k, n)).astype(np.float32),
+                            device=cuda)
+        for w in k2.SLICE_WIDTHS:
+            assert torch.equal(k2.pack_slices_cuda(b, w),
+                               k2.pack_slices(b, w))
 
 
 def test_mul_dense_reaches_each_kernel(cuda):
@@ -440,6 +563,7 @@ def _entries(rng, entries, rows, lanes, dev, hot=None):
             torch.as_tensor(b.astype(np.float32), device=dev))
 
 
+@pytest.mark.parametrize("kernel", ["cluster", "atomic"])
 @pytest.mark.parametrize(
     "entries,rows,lanes,hot",
     [
@@ -453,18 +577,21 @@ def _entries(rng, entries, rows, lanes, dev, hot=None):
         (4096, 16, 33, 15),        # one hot row, scalar kernel, last row
         (0, 8, 16, None),          # no entries: C is cleared
         (1, 1, 4, None),
+        (5000, 4096, 4096, None),  # 32 lane slices of 128 KB a block
     ],
 )
-def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot):
-    """Tolerance: the kernel's atomics add in no fixed order; the probe's
-    own bound, max abs error < 1e-4, scaled by the largest magnitude where
-    one row takes thousands of entries."""
+def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot,
+                                        kernel):
+    """Both K6 kernels on the same cases. Tolerance: the adds come in no
+    fixed order; the probe's own bound, max abs error < 1e-4, scaled by the
+    largest magnitude where one row takes thousands of entries."""
     rng = np.random.default_rng(7)
     ii, kk, vv, b = _entries(rng, entries, rows, lanes, cuda, hot)
-    before = k6.LAUNCHES
-    out = k6.entry_fma(ii, kk, vv, b, rows)
+    before = (k6.LAUNCHES, k6.LAUNCHES_BY_KERNEL[kernel])
+    out = k6.entry_fma(ii, kk, vv, b, rows, kernel=kernel)
     torch.cuda.synchronize()
-    assert k6.LAUNCHES == before + 1
+    assert (k6.LAUNCHES, k6.LAUNCHES_BY_KERNEL[kernel]) == (
+        before[0] + 1, before[1] + 1)
     ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
     assert out.shape == ref.shape == (rows, lanes)
     ref64 = torch.zeros((rows, lanes), dtype=torch.float64, device=cuda)
@@ -472,6 +599,30 @@ def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot):
     scale = max(float(ref64.abs().max()), 1.0) if entries else 1.0
     assert float((out - ref).abs().max()) < 1e-4 * scale
     assert float((out.double() - ref64).abs().max()) < 1e-4 * scale
+
+
+def test_entry_fma_dispatch_is_by_tile_size(cuda):
+    """With no kernel named every tile takes the atomic kernel (the cluster
+    kernel measured slower at every shape); asking for the cluster kernel
+    runs it on a tile that fits a cluster's shared memory and raises on one
+    that does not."""
+    rng = np.random.default_rng(10)
+    for rows, lanes, fits in ((4096, 128, True), (4096, 512, True),
+                              (200_000, 512, False)):
+        assert (k6.cluster_geometry(rows, lanes) is not None) == fits
+        assert k6.DEFAULT_KERNEL == "atomic"
+        ii, kk, vv, b = _entries(rng, 4000, rows, lanes, cuda)
+        before = dict(k6.LAUNCHES_BY_KERNEL)
+        out = k6.entry_fma(ii, kk, vv, b, rows)
+        torch.cuda.synchronize()
+        assert k6.LAUNCHES_BY_KERNEL["atomic"] == before["atomic"] + 1
+        assert k6.LAUNCHES_BY_KERNEL["cluster"] == before["cluster"]
+        _close(out, k6.entry_fma_reference(ii, kk, vv, b, rows))
+    with pytest.raises(ValueError):
+        k6.entry_fma(ii, kk, vv, b, rows, kernel="cluster")
+    with pytest.raises(ValueError):
+        k6.entry_fma(ii, kk, vv, b, rows, kernel="shared")
+    assert k6.LAUNCHES_BY_KERNEL["cluster"] == before["cluster"]
 
 
 def test_entry_fma_unaligned_b_takes_the_scalar_kernel(cuda):
@@ -510,3 +661,22 @@ def test_entry_fma_probe_runs_on_the_card(cuda):
     res = probe.measure(8192, 4096, 128, cuda, iters=5)
     assert res["value"] > 0 and res["stream_kernel_ns"] > 0
     assert res["max_abs_err"] < 1e-4 and res["stream_max_abs_err"] < 1e-4
+    assert res["kernel"] == "atomic" and set(res["by_kernel"]) == {
+        "cluster", "atomic"}
+    assert all(t["kernel_ms"] > 0 and t["max_abs_err"] < 1e-4
+               for t in res["by_kernel"].values())
+
+
+def test_stream_slice_probe_runs_on_the_card(cuda):
+    from basic_sparse_matrix_tpu_torch.probes import stream_slice_probe as sp
+
+    assert sp.l2_gather_gbps(1 << 20, cuda, iters=64) > 0
+    plan, b = sp.make_operand(20_000, 16, 64, cuda)
+    reports = sp.sweep(plan, b, iters=2)
+    assert [r["kernel"] for r in reports].count("sliced") == 8
+    assert all(r["ms"] > 0 for r in reports)
+    assert all(r["max_abs_err_vs_tile"] < 1e-4 and r["bitwise_repeatable"]
+               for r in reports if r["kernel"] == "sliced")
+    long = sp.long_row_report(20_000, 16, 64, 700, cuda, iters=2)
+    assert long["longest_row"] == 700 and long["max_abs_err_vs_tile"] < 1e-4
+    assert long["tile"]["ms"] > 0 and long["sliced_w32"]["ms"] > 0

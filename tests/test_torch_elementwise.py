@@ -25,6 +25,16 @@ from basic_sparse_matrix_tpu_torch.utils.errors import IncorrectDimensions
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
+
 def _coo(seed, rows, cols, nnz, dtype):
     rng = np.random.default_rng(seed)
     r = rng.integers(0, rows, nnz)

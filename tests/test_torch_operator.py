@@ -24,6 +24,16 @@ from basic_sparse_matrix_tpu_torch.utils import config as pcfg
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
+
 def _spd(n, seed=0):
     rng = np.random.default_rng(seed)
     m = rng.standard_normal((n, n))

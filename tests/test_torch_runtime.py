@@ -36,6 +36,16 @@ from basic_sparse_matrix_tpu_torch.utils.errors import (
 )
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 

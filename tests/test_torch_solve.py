@@ -38,6 +38,16 @@ from basic_sparse_matrix_tpu_torch.utils import config as pcfg
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -285,7 +295,7 @@ _BLOCKED = (
     "import basic_sparse_matrix_tpu_torch as P\n"
     "from basic_sparse_matrix_tpu_torch.utils import config\n"
     "config.set_config(dataclasses.replace(config.get_config(),"
-    " ordering='nd', banded_max_block=0))\n"
+    " ordering='nd', banded_max_block=0, device='cpu'))\n"
     "k = 6; n = k * k; d = 4 * np.eye(n)\n"
     "for i in range(n):\n"
     "    for j in (i + 1, i + k):\n"

@@ -38,6 +38,16 @@ from basic_sparse_matrix_tpu_torch.utils import config as pcfg
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
+
 def _laplacian_1d(n):
     return (4.0 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)).astype(
         np.float32)

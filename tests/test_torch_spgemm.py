@@ -24,6 +24,16 @@ from basic_sparse_matrix_tpu_torch.utils.errors import IncorrectDimensions
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
 # ``ops.spgemm`` names the function in both packages' ``ops`` namespaces, so
 # ``import ... as`` would bind that; take the modules by name.
 jg = importlib.import_module("basic_sparse_matrix_tpu.ops.spgemm")

@@ -30,6 +30,16 @@ pm = importlib.import_module("basic_sparse_matrix_tpu_torch.ops.spmm")
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
 RTOL, ATOL = 1e-5, 1e-5
 
 
@@ -269,7 +279,9 @@ def test_config_fields_cover_jax_and_env_overrides():
     jnames = {f.name for f in dataclasses.fields(JConfig)}
     pnames = {f.name for f in dataclasses.fields(pc.Config)}
     assert jnames <= pnames
-    assert pnames - jnames == {"cuda_stream_tile_m", "cuda_stream_tile_k"}
+    assert pnames - jnames == {"cuda_stream_tile_m", "cuda_stream_tile_k",
+                               "device"}
+    assert pc.Config().device == "cuda"
     for name in ("dense_dispatch_density", "dense_dispatch_max_bytes",
                  "bsr_min_fill", "ell_max_overhead", "ell_stream"):
         assert getattr(pc.Config(), name) == getattr(JConfig(), name)
@@ -282,6 +294,69 @@ def test_config_fields_cover_jax_and_env_overrides():
          "print(c.bsr_min_fill, c.cuda_stream_tile_m, c.ell_stream)"],
         env=env, capture_output=True, text=True, check=True)
     assert out.stdout.split() == ["0.5", "32", "off"]
+
+
+# ---- the default device ---------------------------------------------------- #
+def test_default_device_explicit_argument_wins():
+    assert pc.default_device("cpu") == torch.device("cpu")
+    assert pc.default_device(torch.device("cuda", 1)) == torch.device("cuda:1")
+    assert pc.default_device("meta").type == "meta"
+    with pc.use_device("cuda"):
+        # an explicit device is taken whatever the configuration says
+        a = P.CSR.eye((3, 3), device="cpu")
+        assert a.device.type == "cpu"
+        assert P.Dense.from_data([[1.0, 2.0]], device="cpu").array.device \
+            .type == "cpu"
+
+
+def test_use_device_sets_and_restores_the_default():
+    before = pc.get_config()
+    with pc.use_device("cpu"):
+        assert pc.get_config().device == "cpu"
+        assert pc.default_device() == torch.device("cpu")
+        assert P.CSR.eye((2, 2)).device.type == "cpu"
+        assert P.Dense.new_default_with_dims(2, 3).array.device.type == "cpu"
+    assert pc.get_config() is before
+
+
+@pytest.mark.parametrize("build", [
+    lambda: P.CSR.from_coo_arrays((2, 2), [0], [1], [1.0]),
+    lambda: P.CSR.from_dense(np.eye(2, dtype=np.float32)),
+    lambda: P.CSR.eye((2, 2)),
+    lambda: P.CSR.create_diagonal([1.0, 2.0]),
+    lambda: P.CSR.empty((2, 2)),
+    lambda: P.Dense.from_data([[1.0, 2.0]]),
+    lambda: P.Dense.new_default_with_dims(2, 2),
+], ids=["from_coo_arrays", "from_dense", "eye", "create_diagonal", "empty",
+        "Dense.from_data", "Dense.new_default_with_dims"])
+def test_default_device_without_a_card_raises_the_named_error(build):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pc.use_device("cuda"):
+        with pytest.raises(pc.NoDefaultDevice) as err:
+            build()
+    assert 'device="cpu"' in str(err.value)
+    assert "BSM_DEVICE=cpu" in str(err.value)
+
+
+def test_bsm_device_env_override_wins_in_a_subprocess():
+    code = ("import basic_sparse_matrix_tpu_torch as P;"
+            "from basic_sparse_matrix_tpu_torch.utils.config import "
+            "get_config, default_device;"
+            "print(get_config().device, default_device(), "
+            "P.CSR.eye((3, 3)).device.type)")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env={**os.environ, "BSM_DEVICE": "cpu"},
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["cpu", "cpu", "cpu"]
+    if torch.cuda.is_available():
+        return
+    # and without the override, on a machine with no card, the named error
+    env = {k: v for k, v in os.environ.items() if k != "BSM_DEVICE"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True)
+    assert out.returncode != 0 and "NoDefaultDevice" in out.stderr
+    assert "BSM_DEVICE=cpu" in out.stderr
 
 
 def test_matmul_precision_turns_tf32_off_and_restores():

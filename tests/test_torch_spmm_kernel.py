@@ -23,6 +23,16 @@ from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as pk
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
 CASES = [
     (128, 256, 0.05, 128),   # tile-aligned
     (100, 200, 0.1, 64),     # unaligned everything

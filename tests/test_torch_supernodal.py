@@ -35,6 +35,16 @@ from basic_sparse_matrix_tpu_torch.utils import config as pcfg
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
 RTOL = 1e-5
 ATOL_OF_MAX = 1e-6
 GATHERS = ("auto", "element", "window", "kernel")

@@ -19,6 +19,16 @@ from basic_sparse_matrix_tpu_torch.runtime import symbolic as ps
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _on_the_cpu():
+    """The port builds on the card unless asked otherwise: these tests ask
+    for the CPU, and hand the previous default back afterwards."""
+    from basic_sparse_matrix_tpu_torch.utils.config import use_device
+
+    with use_device("cpu"):
+        yield
+
+
 def _lap(k, dim):
     """The (2·dim+1)-point Laplacian on a k^dim grid as COO arrays."""
     n = k ** dim
