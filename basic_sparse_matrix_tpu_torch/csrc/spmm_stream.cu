@@ -37,14 +37,15 @@
 // used many times (1M x 1M, 32 entries a row, 512 columns: 65.5 GB of B
 // reads for a 2 GB B), it runs at 82% of the HBM rate for traffic that is 32
 // times what the function needs. The second kernel here ("sliced") cuts the
-// COLUMNS of B instead: a slice of w columns over all K rows is K*w*4 bytes,
-// and while every row tile is swept for one slice, a slice that fits L2 is
-// read from HBM once.
+// COLUMNS of B instead: a slice of SW = 32 columns over all K rows is K*128
+// bytes (a row's piece is one whole 128-byte L2 line, so B is read as it
+// lies), and while every row tile is swept for one slice, a slice that fits
+// L2 is read from HBM once.
 //
 //   * stream_sliced_kernel is a persistent grid whose OUTER loop is the
 //     slice and whose inner loop strides over units of ST/G consecutive
 //     rows, so the whole card works on one slice at a time whatever order
-//     the hardware starts blocks in. G = w/4 threads own one row and one
+//     the hardware starts blocks in. G = 8 threads own one row and one
 //     float4 of the slice each; a thread walks its row's slots (the plan
 //     keeps a cell's slots sorted by row; the per-cell row pointers come
 //     from the host plan) with SU independent B loads in flight, keeps the
@@ -57,23 +58,18 @@
 //     one element in 32 so that rows 32 slots apart fall in different
 //     banks. Padding slots (they follow a cell's live slots) are never
 //     visited.
-//   * pack_slices_kernel rewrites B slice-major, (N/w, K, w), for w < 32: L2
-//     keeps 128-byte lines, and a 32-byte piece of each 2 KB row of a
-//     row-major B would claim a whole line each, four times the slice. At
-//     w = 32 a row's piece is a whole line and B is read as it lies.
 //
 //   What bounds it on the H100 (probes/stream_slice_probe.py): the slot
 //   arrays are read again for every slice (8 B a slot), and every slot is one
-//   gather of w*4 bytes. At w = 32 the pieces are whole lines: a slice that
-//   fits L2 (K = 200k: 25.6 MB) is gathered from L2 (2.46 ms against the
-//   tile kernel's 4.45), a slice that does not (K = 1M: 128 MB) streams from
-//   HBM at 3.1 TB/s (21.4 ms against 23.7). Narrower slices do fit L2 at
-//   K = 1M, but a gather of 32-byte sectors from L2 reaches only 3.2 TB/s
-//   from a 32 MB array (4.4 from 16 MB), no more than HBM gives the tile
-//   kernel's 2 KB reads, and the slot re-reads and C's 32-byte writes evict
-//   part of the slice: w = 8 takes 67 ms, w = 16 32 ms, w = 4 122 ms. So
-//   the wrapper dispatches w = 32 unpacked only; the narrow widths and the
-//   pack kernel stay for the probe that measures them.
+//   gather of 128 bytes. A slice that fits L2 (K = 200k: 25.6 MB) is
+//   gathered from L2 (2.46 ms against the tile kernel's 4.45), a slice that
+//   does not (K = 1M: 128 MB) streams from HBM at 3.1 TB/s (21.4 ms against
+//   23.7). Why no narrower slice: 4, 8 or 16 columns of a B repacked
+//   slice-major do fit L2 at K = 1M, but a gather of 32-byte sectors from L2
+//   reaches only 3.2 TB/s from a 32 MB array (4.4 from 16 MB), no more than
+//   HBM gives the tile kernel's 2 KB reads, and the slot re-reads and C's
+//   32-byte writes evict part of the slice: measured 67, 32 and 122 ms at
+//   8, 16 and 4 columns.
 //
 // l2_gather_probe_kernel measures what the sliced kernel's gather can reach:
 // pairs of threads read 32-byte pieces at hashed addresses of an array.
@@ -202,6 +198,8 @@ int launch(const int* ii, const int* kk, const float* vv, const float* B,
 // ---- the sliced kernel ------------------------------------------------------
 
 constexpr int ST = 256;     // threads of a block
+constexpr int SW = 32;      // columns of a slice: one 128-byte line a row of B
+constexpr int G = SW / 4;   // threads of a row, one float4 of the slice each
 constexpr int SWIN = 4096;  // slots staged per window (33 KB with the skew)
 constexpr int SU = 4;       // independent B loads in flight per thread
 
@@ -214,36 +212,16 @@ __device__ __forceinline__ void fma4(float4& acc, float v, const float4& b) {
   acc.w = fmaf(v, b.w, acc.w);
 }
 
-// B row-major (K, N) -> P slice-major (n_slices, K, w), columns past N zero.
-// One thread per float4 of a padded row; N % 4 == 0.
-__global__ void pack_slices_kernel(const float* __restrict__ B,
-                                   float* __restrict__ P, long long K, int N,
-                                   int w, int groups_per_row,
-                                   long long total) {
-  const long long t = (long long)blockIdx.x * ST + threadIdx.x;
-  if (t >= total) return;
-  const long long k = t / groups_per_row;
-  const int col = (int)(t - k * groups_per_row) * 4;
-  const int s = col / w;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (col < N) v = __ldcs(reinterpret_cast<const float4*>(B + k * N + col));
-  *reinterpret_cast<float4*>(P + ((long long)s * K + k) * w + (col - s * w)) =
-      v;
-}
-
-// Persistent grid. Slice s reads B + s*b_slice + k*ldb and writes
-// C + s*c_slice + r*ldc (packed B: b_slice = K*w, ldb = w; row-major B:
-// b_slice = w, ldb = N; likewise C). Plans with one k tile: cell rt is row
-// tile rt, and rp is the per-cell row pointer array, (n_rt, tile_m + 1)
-// int32 offsets into the cell's cellmax slots.
-template <int G>
+// Persistent grid. Slice s reads B + s*SW + k*ldb and writes C + s*SW +
+// r*ldc (both row-major). Plans with one k tile: cell rt is row tile rt, and
+// rp is the per-cell row pointer array, (n_rt, tile_m + 1) int32 offsets
+// into the cell's cellmax slots.
 __global__ void __launch_bounds__(ST)
 stream_sliced_kernel(const int* __restrict__ rp, const int* __restrict__ kk,
                      const float* __restrict__ vv,
                      const float* __restrict__ B, float* __restrict__ C,
                      int rows, int N, int tile_m, int cellmax, int n_slices,
-                     long long b_slice, long long ldb, long long c_slice,
-                     long long ldc) {
+                     long long ldb, long long ldc) {
   constexpr int RB = ST / G;  // rows of a unit
   __shared__ int2 win[SWIN + SWIN / 32];
   __shared__ long long span[2];
@@ -253,9 +231,9 @@ stream_sliced_kernel(const int* __restrict__ rp, const int* __restrict__ kk,
 
   for (int s = 0; s < n_slices; ++s) {
     // N % 4 == 0: a thread's four columns are all in or all out
-    const bool live_col = s * (G * 4) + g * 4 < N;
-    const float* Bs = B + s * b_slice + g * 4;
-    float* Cs = C + s * c_slice + g * 4;
+    const bool live_col = s * SW + g * 4 < N;
+    const float* Bs = B + s * SW + g * 4;
+    float* Cs = C + s * SW + g * 4;
     for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
       const int r = unit * RB + lr;
       const int r_last = min(unit * RB + RB, rows) - 1;
@@ -314,9 +292,8 @@ stream_sliced_kernel(const int* __restrict__ rp, const int* __restrict__ kk,
 }
 
 // Blocks of the persistent grid: what fits the card at once.
-template <int G>
 int sliced_grid(int n_units, int* blocks) {
-  static int resident = 0;  // per instantiation; the card does not change
+  static int resident = 0;  // the card does not change
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -324,7 +301,7 @@ int sliced_grid(int n_units, int* blocks) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, stream_sliced_kernel<G>, ST, 0);
+          &per_sm, stream_sliced_kernel, ST, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (sms * per_sm <= 0)
       return static_cast<int>(cudaErrorLaunchOutOfResources);
@@ -332,21 +309,6 @@ int sliced_grid(int n_units, int* blocks) {
   }
   *blocks = n_units < resident ? n_units : resident;
   return 0;
-}
-
-template <int G>
-int launch_sliced(const int* rp, const int* kk, const float* vv,
-                  const float* B, float* C, int rows, int N, int tile_m,
-                  int cellmax, int n_slices, long long b_slice, long long ldb,
-                  long long c_slice, long long ldc, cudaStream_t stream) {
-  const int n_units = (rows + ST / G - 1) / (ST / G);
-  int blocks = 0;
-  const int status = sliced_grid<G>(n_units, &blocks);
-  if (status != 0) return status;
-  stream_sliced_kernel<G><<<blocks, ST, 0, stream>>>(
-      rp, kk, vv, B, C, rows, N, tile_m, cellmax, n_slices, b_slice, ldb,
-      c_slice, ldc);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Pairs of threads read 32-byte pieces of A at hashed piece indices, iters
@@ -389,46 +351,23 @@ extern "C" int bsm_spmm_stream(const int* ii, const int* kk, const float* vv,
                    rows, N, ldb, ldc, cw, s);
 }
 
-// B (K, N) row-major -> P (ceil(N / w), K, w); N % 4 == 0, w in 4, 8, 16, 32.
-extern "C" int bsm_pack_slices(const float* B, float* P, long long K, int N,
-                               int w, void* stream) {
-  if (K <= 0 || N <= 0) return 0;
-  if (N % 4 != 0 || w % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_slices = (N + w - 1) / w;
-  const int groups_per_row = n_slices * w / 4;
-  const long long total = K * groups_per_row;
-  if ((total + ST - 1) / ST > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  pack_slices_kernel<<<(unsigned)((total + ST - 1) / ST), ST, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      B, P, K, N, w, groups_per_row, total);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The sliced kernel on a plan with one k tile; w in 4, 8, 16, 32 and
-// N % 4 == 0. See stream_sliced_kernel for the strides.
+// The sliced kernel on a plan with one k tile; N % 4 == 0, B and C
+// row-major with row strides ldb and ldc.
 extern "C" int bsm_spmm_stream_sliced(const int* rp, const int* kk,
                                       const float* vv, const float* B,
                                       float* C, int rows, int N, int tile_m,
-                                      int cellmax, int w, long long b_slice,
-                                      long long ldb, long long c_slice,
+                                      int cellmax, long long ldb,
                                       long long ldc, void* stream) {
   if (rows <= 0 || N <= 0) return 0;
   if (N % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_slices = (N + w - 1) / w;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BSM_SLICED(G)                                                       \
-  return launch_sliced<G>(rp, kk, vv, B, C, rows, N, tile_m, cellmax,       \
-                          n_slices, b_slice, ldb, c_slice, ldc, s)
-  switch (w) {
-    case 4: BSM_SLICED(1);
-    case 8: BSM_SLICED(2);
-    case 16: BSM_SLICED(4);
-    case 32: BSM_SLICED(8);
-  }
-#undef BSM_SLICED
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int n_units = (rows + ST / G - 1) / (ST / G);
+  int blocks = 0;
+  const int status = sliced_grid(n_units, &blocks);
+  if (status != 0) return status;
+  stream_sliced_kernel<<<blocks, ST, 0, static_cast<cudaStream_t>(stream)>>>(
+      rp, kk, vv, B, C, rows, N, tile_m, cellmax, (N + SW - 1) / SW, ldb,
+      ldc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // threads = blocks * 256; every pair of threads reads iters pieces of 32

@@ -704,6 +704,50 @@ def analyze_supernodal(a: CSR, *, relax: int = 0) -> SupernodalSchedule:
     )
 
 
+def _addback_sheared_vmem(lvals, p, tcp, twd, vshape):
+    """The K4 add-back of merged rects ``p`` (St, Rd, Wt) as the JAX package
+    forms it: shear by a reshape, negate, pad to the group's (CQ, col_pad)
+    class shape, dead slots -1, then the span kernel's wrapper."""
+    from ..ops.pallas.addback_resident import addback_resident, shear_reshape
+
+    St, _, Wt = p.shape
+    cq, col_pad = vshape
+    psh = shear_reshape(-p, col_pad)               # (St, Wt, col_pad)
+    psh2 = F.pad(psh.reshape(St * Wt, col_pad), (0, 0, 0, cq - St * Wt))
+    wv = _arange(Wt, p)[None, :]
+    tcpf = torch.where(wv < twd[:, None], tcp, -1).reshape(-1)
+    tcpf = F.pad(tcpf, (0, cq - St * Wt), value=-1)
+    return addback_resident(lvals, psh2, tcpf.to(torch.int32))
+
+
+def _addback_sheared_pallas(lvals, p, tcp, twd):
+    """The K5 add-back of merged rects ``p`` (St, Rd, Wt) as the JAX package
+    forms it: shear with a constant one-hot product, pad to power-of-two
+    panel and column counts with 1024 trailing zeros a row, then the span
+    kernel's wrapper."""
+    from ..ops.pallas.panel_addback import panel_addback
+
+    St, Rd, Wt = p.shape
+    col_pad = _colq(Rd)
+    qq = _arange(col_pad, p)
+    wv = _arange(Wt, p)
+    # constant one-hot shear: shift[w, q, r] = (r == q + w); rect rows
+    # past a column's true run read p rows that are already zero
+    shift = (_arange(Rd, p)[None, None, :]
+             == (qq[None, :, None] + wv[:, None, None])
+             ).to(p.dtype)                          # (Wt, col_pad, Rd)
+    psh = torch.einsum("wqr,srw->swq", shift, -p)
+    # Power-of-two panel and column counts and 1024 trailing zeros:
+    # the JAX package's K5 operand shapes (padded slots are dead).
+    St_q = _pow2(St)
+    Wt_q = _pow2(Wt)
+    psh = F.pad(psh, (0, 1024, 0, Wt_q - Wt, 0, St_q - St))
+    tcp_q = F.pad(tcp, (0, Wt_q - Wt, 0, St_q - St))
+    twd_q = F.pad(twd, (0, St_q - St))
+    return panel_addback(lvals, psh.contiguous(), tcp_q.to(torch.int32),
+                         twd_q.to(torch.int32))
+
+
 def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
                    tcp, tnr, twd, seg, Rd: int,
                    scratch: int, mode: str = "delta", vshape=None):
@@ -723,7 +767,12 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
       (``ops/pallas/addback_resident``) over the group's (CQ, col_pad)
       class shape;
     * ``mode="pallas"``: shear with a constant one-hot product and add with
-      K5 (``ops/pallas/panel_addback``) over power-of-two (St, Wt) shapes.
+      K5 (``ops/pallas/panel_addback``) over power-of-two (St, Wt) shapes;
+    * on a CUDA ``lvals`` both add-back modes hand the merged rects to the
+      add-back kernel's rect entry (``addback_rects``, counted as a K4 launch
+      under "vmem" and a K5 launch under "pallas"), which shears, negates
+      and masks as it reads: no sheared or padded array is built. On a CPU
+      ``lvals`` the sheared forms run as written above.
 
     Out-of-range ranks (padding lanes, upper wedge) fall out of the one-hot
     support or land on ``scratch``, which the caller re-zeroes. The
@@ -761,39 +810,17 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
     else:
         p = merge_chunk(u3, ri, rj, seg)
     if mode == "vmem":
-        from ..ops.pallas.addback_resident import (
-            addback_resident,
-            shear_reshape,
-        )
+        if lvals.is_cuda:
+            from ..ops.pallas.addback_resident import addback_rects
 
-        cq, col_pad = vshape
-        psh = shear_reshape(-p, col_pad)               # (St, Wt, col_pad)
-        psh2 = F.pad(psh.reshape(St * Wt, col_pad), (0, 0, 0, cq - St * Wt))
-        wv = _arange(Wt, u3)[None, :]
-        tcpf = torch.where(wv < twd[:, None], tcp, -1).reshape(-1)
-        tcpf = F.pad(tcpf, (0, cq - St * Wt), value=-1)
-        return addback_resident(lvals, psh2, tcpf.to(torch.int32))
+            return addback_rects(lvals, p, tcp, tnr, twd)
+        return _addback_sheared_vmem(lvals, p, tcp, twd, vshape)
     if mode == "pallas":
-        from ..ops.pallas.panel_addback import panel_addback
+        if lvals.is_cuda:
+            from ..ops.pallas.panel_addback import panel_addback_rects
 
-        col_pad = _colq(Rd)
-        qq = _arange(col_pad, u3)
-        wv = _arange(Wt, u3)
-        # constant one-hot shear: shift[w, q, r] = (r == q + w); rect rows
-        # past a column's true run read p rows that are already zero
-        shift = (_arange(Rd, u3)[None, None, :]
-                 == (qq[None, :, None] + wv[:, None, None])
-                 ).to(dt)                               # (Wt, col_pad, Rd)
-        psh = torch.einsum("wqr,srw->swq", shift, -p)
-        # Power-of-two panel and column counts and 1024 trailing zeros:
-        # the JAX package's K5 operand shapes (padded slots are dead).
-        St_q = _pow2(St)
-        Wt_q = _pow2(Wt)
-        psh = F.pad(psh, (0, 1024, 0, Wt_q - Wt, 0, St_q - St))
-        tcp_q = F.pad(tcp, (0, Wt_q - Wt, 0, St_q - St))
-        twd_q = F.pad(twd, (0, St_q - St))
-        return panel_addback(lvals, psh.contiguous(), tcp_q.to(torch.int32),
-                             twd_q.to(torch.int32))
+            return panel_addback_rects(lvals, p, tcp, tnr, twd)
+        return _addback_sheared_pallas(lvals, p, tcp, twd)
     rr = _arange(Rd, u3)[None, :, None]
     wwt = _arange(Wt, u3)[None, None, :]
     mask = ((wwt < twd[:, None, None]) & (rr >= wwt)

@@ -11,7 +11,12 @@ from .elementwise import (
     sum_elements,
 )
 from .ell import ELL, csr_to_ell, spmm_ell, spmv_ell
-from .interop import from_scipy, to_scipy
+from .interop import (
+    from_scipy,
+    from_torch_sparse,
+    to_scipy,
+    to_torch_sparse,
+)
 from .spgemm import mul_sparse, spgemm, spgemm_bounded, spgemm_dense
 from .spmm import mul_dense, mul_vector, spmm, spmm_auto, spmm_to_csr, spmv
 from .transpose import transpose
@@ -26,6 +31,8 @@ __all__ = [
     "spmv_ell",
     "to_scipy",
     "from_scipy",
+    "to_torch_sparse",
+    "from_torch_sparse",
     "Dense",
     "DenseS",
     "spmm",

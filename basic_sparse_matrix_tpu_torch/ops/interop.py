@@ -1,5 +1,10 @@
-"""Interop: scipy converters and the bridge that carries state across from
-the JAX package.
+"""Interop: converters to and from PyTorch's own sparse tensors and scipy,
+and the bridge that carries state across from the JAX package.
+
+:func:`to_torch_sparse` and :func:`from_torch_sparse` are the port's
+counterpart of the JAX package's ``to_bcoo``/``from_bcoo``: the ecosystem's
+sparse type there is ``jax.experimental.sparse.BCOO``, here it is
+``torch.sparse_csr_tensor`` / ``torch.sparse_coo_tensor``.
 
 ``csr_from_numpy``, ``bsr_from_numpy`` and ``stream_plan_from_numpy`` build
 the port's :class:`CSR`, ``BSR`` and ``StreamPlan`` from the numpy arrays of
@@ -16,9 +21,41 @@ solve fault. Nothing here imports JAX: the caller hands over numpy.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..utils.shapes import DimLike
 from .csr import CSR, to_tensor
+
+
+def to_torch_sparse(a: CSR, layout: str = "csr") -> torch.Tensor:
+    """CSR → a PyTorch sparse tensor on ``a``'s device, without going
+    through dense: ``layout="csr"`` gives a ``torch.sparse_csr_tensor``
+    over ``a``'s own arrays, ``"coo"`` a coalesced
+    ``torch.sparse_coo_tensor`` (sorted, unique indices, as the JAX
+    package's ``to_bcoo`` states of its BCOO)."""
+    if layout == "csr":
+        return torch.sparse_csr_tensor(a.indptr, a.indices, a.values,
+                                       size=a.shape)
+    if layout == "coo":
+        idx = torch.stack([a.row_ids().long(), a.indices.long()])
+        return torch.sparse_coo_tensor(idx, a.values, size=a.shape,
+                                       is_coalesced=True)
+    raise ValueError(f"layout must be 'csr' or 'coo', got {layout!r}")
+
+
+def from_torch_sparse(m: torch.Tensor, device=None) -> CSR:
+    """A PyTorch sparse tensor of any layout (2-D) → CSR on ``device``
+    (default: the tensor's own). Host conversion; duplicates summed,
+    explicit zeros kept, as the JAX package's ``from_bcoo``."""
+    if m.layout == torch.strided or m.ndim != 2:
+        raise ValueError(f"from_torch_sparse takes a 2-D sparse tensor, got "
+                         f"layout {m.layout}, {m.ndim} dimensions")
+    coo = m.to_sparse_coo().coalesce()
+    rows, cols = coo.indices().cpu().numpy()
+    return CSR.from_coo_arrays(
+        tuple(m.shape), rows, cols, coo.values().cpu().numpy(),
+        sum_duplicates=True, drop_zeros=False,
+        device=m.device if device is None else device)
 
 
 def csr_from_numpy(indptr, indices, values, shape: DimLike,

@@ -21,15 +21,14 @@ computes ``C[rt*tile_m + i, :] += v * B[kt*tile_k + k, :]`` over all slots:
     row's piece of B is one whole 128-byte L2 line: the slice (K x 128
     bytes) stays in L2 where it fits and streams at the HBM rate where it
     does not. Plans with one k tile whose cells keep their slots sorted by
-    row, float32 ``B`` with ``N % 4 == 0``. Narrower slices (w = 4, 8, 16,
-    B repacked slice-major by the pack kernel) are kept as options of
-    :func:`spmm_stream_sliced` for ``probes/stream_slice_probe.py``: on the
-    H100 they lose to the tile kernel, because a gather of 32-byte pieces
-    from L2 is no faster than the tile kernel's 2 KB reads from HBM;
+    row, float32 ``B`` with ``N % 4 == 0``. One width only: narrower
+    slices of a ``B`` repacked slice-major lose to the tile kernel on the
+    H100, because a gather of 32-byte pieces from L2 is no faster than the
+    tile kernel's 2 KB reads from HBM;
 
 * on a CPU tensor with :func:`spmm_stream_reference`, the plain version of
   both kernels. :func:`spmm_stream_sliced_model` is a pure-torch model of
-  the sliced kernel's arithmetic (pack, per-row sums, unpack) for the tests.
+  the sliced kernel's arithmetic (slices, per-row sums) for the tests.
 
 The JAX package's three ``layout`` values are three TPU register layouts of
 one function; here they select nothing. The CUDA target's tiles are its
@@ -73,9 +72,9 @@ SMEM_MAX_BYTES = 232448
 # RHS width is no multiple of 4), so a block covers up to 512 columns.
 THREADS = 128
 
-# Slice widths (columns of B) the sliced kernel is built for, widest first.
-# The dispatch takes the first: 32 columns are one whole 128-byte line a row.
-SLICE_WIDTHS = (32, 16, 8, 4)
+# Columns of B in one slice of the sliced kernel: one whole 128-byte line a
+# row, so B is read as it lies.
+SLICE_WIDTH = 32
 # A B (K x N x 4 bytes) up to this size is taken as L2-resident as it lies,
 # and keeps the tile kernel. The H100's L2 is 50 MB; a gather of 32-byte
 # pieces from all SMs reads a 16 MB array at 4.4 TB/s, a 32 MB one at 3.2
@@ -259,14 +258,14 @@ def slice_width(k: int, n: int, n_kt: int) -> int:
     side, or 0 where it does not apply: more than one k tile, ``n`` no
     multiple of 4, or a ``B`` that fits ``L2_SLICE_BUDGET_BYTES`` whole
     (the tile kernel's reads then hit L2 anyway). Where it applies the
-    width is ``SLICE_WIDTHS[0]`` = 32, read as ``B`` lies: measured on the
+    width is ``SLICE_WIDTH`` = 32, read as ``B`` lies: measured on the
     H100 at 32 entries a row and n = 512, sliced / tile ms at K = 200k
     (slice 25.6 MB, in L2) 2.46 / 4.45, at 400k 5.54 / 9.27, at 1M (slice
     128 MB, streamed) 21.4 / 23.7, and every narrower width slower than the
     tile kernel."""
     if n_kt != 1 or n % 4 != 0 or k * n * 4 <= L2_SLICE_BUDGET_BYTES:
         return 0
-    return SLICE_WIDTHS[0]
+    return SLICE_WIDTH
 
 
 def pick_stream_kernel(rows: int, k: int, n: int, n_kt: int,
@@ -282,28 +281,24 @@ def pick_stream_kernel(rows: int, k: int, n: int, n_kt: int,
     return "tile", 0
 
 
-def pack_slices(b: torch.Tensor, w: int) -> torch.Tensor:
-    """``b`` (K, N) slice-major, (ceil(N / w), K, w), columns past N zero:
-    the plain version of the pack kernel."""
-    k, n = b.shape
-    n_slices = -(-n // w)
-    padded = torch.zeros((k, n_slices * w), dtype=b.dtype, device=b.device)
-    padded[:, :n] = b
-    return padded.view(k, n_slices, w).permute(1, 0, 2).contiguous()
-
-
-def spmm_stream_sliced_model(plan: StreamPlan, b: torch.Tensor,
-                             w: int) -> torch.Tensor:
-    """Pure-torch model of the sliced kernel: pack ``b`` slice-major, then
-    for every slice sum each row's slots (``row_ptr`` gives them; padding is
-    never visited) and write the row's ``w`` outputs. Plans with one k tile
-    whose cells are sorted by row. Returns (rows, n) float32."""
+def spmm_stream_sliced_model(plan: StreamPlan,
+                             b: torch.Tensor) -> torch.Tensor:
+    """Pure-torch model of the sliced kernel: cut ``b`` into slices of
+    ``SLICE_WIDTH`` columns (the last one zero-padded), then for every slice
+    sum each row's slots (``row_ptr`` gives them; padding is never visited)
+    and write the row's outputs. Plans with one k tile whose cells are
+    sorted by row. Returns (rows, n) float32."""
     row_ptr, _ = cell_row_pointers(plan)
     if row_ptr is None or plan.n_kt != 1:
         raise ValueError("the sliced kernel takes plans with one k tile "
                          "whose cells keep their slots sorted by row")
-    n = int(b.shape[1])
-    packed = pack_slices(b.float(), w)
+    k, n = (int(x) for x in b.shape)
+    w = SLICE_WIDTH
+    n_slices = -(-n // w)
+    padded = torch.zeros((k, n_slices * w), dtype=torch.float32,
+                         device=b.device)
+    padded[:, :n] = b
+    packed = padded.view(k, n_slices, w).permute(1, 0, 2)  # (slices, K, w)
     lens = torch.diff(row_ptr.long(), dim=1)               # (ncells, tile_m)
     first = row_ptr[:, :-1].long() + plan.cellmax * torch.arange(
         row_ptr.shape[0], device=row_ptr.device)[:, None]
@@ -382,46 +377,12 @@ def spmm_stream_tile(plan: StreamPlan, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def pack_slices_cuda(b: torch.Tensor, w: int) -> torch.Tensor:
-    """``b`` (K, N) float32 on the card, slice-major (ceil(N / w), K, w), by
-    the pack kernel of ``csrc/spmm_stream.cu``; ``N % 4 == 0``."""
-    from ...runtime import cuda_kernels
-
-    k, n = (int(x) for x in b.shape)
-    if not b.is_cuda or b.dtype != torch.float32 or n % 4 or w not in \
-            SLICE_WIDTHS:
-        raise ValueError(f"pack_slices_cuda takes a CUDA float32 (K, N) with "
-                         f"N % 4 == 0 and w in {SLICE_WIDTHS}, got "
-                         f"{b.device}, {b.dtype}, {tuple(b.shape)}, w = {w}")
-    b = b.contiguous()
-    packed = torch.empty((-(-n // w), k, w), dtype=torch.float32,
-                         device=b.device)
-    lib = cuda_kernels.load()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
-        status = lib.bsm_pack_slices(b.data_ptr(), packed.data_ptr(), k, n,
-                                     w, stream)
-    cuda_kernels.check_launch(lib, status, "pack_slices")
-    return packed
-
-
-def spmm_stream_sliced(plan: StreamPlan, b: torch.Tensor, w: int, *,
-                       pack: Optional[bool] = None,
-                       c_slice_major: bool = False) -> torch.Tensor:
-    """SpMM against ``plan`` by the sliced kernel with slices of ``w``
-    columns, on a CUDA float32 ``b`` (K, N), ``N % 4 == 0``; raises where
-    the kernel does not apply. Counts one launch.
-
-    ``pack`` (default: ``w < 32``) first repacks ``b`` slice-major with the
-    pack kernel, so that a slice's bytes are contiguous and fill whole L2
-    lines; at ``w = 32`` a row's piece is a whole line and ``b`` is read as
-    it lies. The plan has one k tile. The dispatch of :func:`spmm_stream`
-    only ever takes ``w = 32`` unpacked; the narrower widths are measured
-    by ``probes/stream_slice_probe.py``. ``c_slice_major`` writes C
-    slice-major too and unpacks it with one strided copy (a measurement
-    option: the default writes each row's ``w`` outputs straight into the
-    row-major result). Both steps run on the caller's stream, inside any
-    time taken around this call."""
+def spmm_stream_sliced(plan: StreamPlan, b: torch.Tensor) -> torch.Tensor:
+    """SpMM against ``plan`` by the sliced kernel (slices of ``SLICE_WIDTH``
+    columns, ``b`` read as it lies, C written row-major) on a CUDA float32
+    ``b`` (K, N), ``N % 4 == 0``, whatever :func:`spmm_stream` would pick;
+    raises where the kernel does not apply (more than one k tile, cells not
+    sorted by row). Counts one launch."""
     from ...runtime import cuda_kernels
 
     if not b.is_cuda:
@@ -430,39 +391,22 @@ def spmm_stream_sliced(plan: StreamPlan, b: torch.Tensor, w: int, *,
     _check_cuda_operands(plan, b)
     k, n = (int(x) for x in b.shape)
     row_ptr, _ = cell_row_pointers(plan)
-    if (row_ptr is None or plan.n_kt != 1 or k != plan.cols or n % 4
-            or w not in SLICE_WIDTHS):
+    if row_ptr is None or plan.n_kt != 1 or k != plan.cols or n % 4:
         raise ValueError(f"the sliced kernel takes a plan with one k tile "
-                         f"whose cells are sorted by row, N % 4 == 0 and w "
-                         f"in {SLICE_WIDTHS}; got {plan.n_kt} k tiles, "
-                         f"sorted {row_ptr is not None}, B "
-                         f"{tuple(b.shape)}, w {w}")
+                         f"whose cells are sorted by row and N % 4 == 0; got "
+                         f"{plan.n_kt} k tiles, sorted {row_ptr is not None}, "
+                         f"B {tuple(b.shape)}")
     b = b.contiguous()
-    n_slices = -(-n // w)
-    if pack is None:
-        pack = w < 32
-    src = pack_slices_cuda(b, w) if pack else b
-    b_strides = (k * w, w) if pack else (w, n)
-    if c_slice_major:
-        out = torch.empty((n_slices, plan.rows, w), dtype=torch.float32,
-                          device=b.device)
-        c_strides = (plan.rows * w, w)
-    else:
-        out = torch.empty((plan.rows, n), dtype=torch.float32,
-                          device=b.device)
-        c_strides = (w, n)
+    out = torch.empty((plan.rows, n), dtype=torch.float32, device=b.device)
     lib = cuda_kernels.load()
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         status = lib.bsm_spmm_stream_sliced(
             row_ptr.data_ptr(), plan.kk.data_ptr(), plan.vv.data_ptr(),
-            src.data_ptr(), out.data_ptr(), plan.rows, n, plan.tile_m,
-            plan.cellmax, w, *b_strides, *c_strides, stream)
+            b.data_ptr(), out.data_ptr(), plan.rows, n, plan.tile_m,
+            plan.cellmax, n, n, stream)
     _count("sliced")
     cuda_kernels.check_launch(lib, status, "spmm_stream (sliced kernel)")
-    if c_slice_major:
-        out = out.permute(1, 0, 2).reshape(plan.rows, n_slices * w)[:, :n] \
-            .contiguous()
     return out
 
 
@@ -497,9 +441,9 @@ def spmm_stream(plan: StreamPlan, b: torch.Tensor,
     # alone already decides for the tile kernel.
     row_ptr, longest = cell_row_pointers(plan) \
         if slice_width(k, n, plan.n_kt) else (None, 0)
-    kernel, w = pick_stream_kernel(plan.rows, k, n, plan.n_kt, longest)
+    kernel, _ = pick_stream_kernel(plan.rows, k, n, plan.n_kt, longest)
     if kernel == "sliced" and row_ptr is not None:
-        return spmm_stream_sliced(plan, b, w)
+        return spmm_stream_sliced(plan, b)
     return spmm_stream_tile(plan, b)
 
 

@@ -4,16 +4,12 @@ SpMM kernel's cost for the same entries.
 
 Counterpart of ``benchmarks/entry_fma_probe.py``. K6
 (``ops/pallas/entry_fma.py``) applies E entries ``(i, k, v)`` to a
-(rows, lanes) float32 tile with one of two kernels: the cluster kernel
-(the tile in the shared memory of thread-block clusters, one launch) where
-the tile fits, else the atomic kernel (the tile in global memory, L2 at
-these sizes, one atomic add per entry and four lanes). The streaming SpMM
+(rows, lanes) float32 tile that stays in global memory (L2 at these
+sizes), one atomic add per entry and four lanes. The streaming SpMM
 K2 (``ops/pallas/stream_kernel.py``) computes the same function from the
-same entries binned by row tile, with no atomics. The probe runs K6 (the
-kernel its wrapper picks, and each of the two by name where it can run) and
-K2 on the same entries in one process, checks each against a plain version,
-and reports nanoseconds per entry; the verdict names the lower of K6 as
-dispatched and K2.
+same entries binned by row tile, with no atomics. The probe runs both on
+the same entries in one process, checks each against a plain version, and
+reports nanoseconds per entry for both; the verdict names the lower one.
 
 Two times are taken per kernel, both with CUDA events. ``call_ms`` is an
 event pair around one call made at the host's pace: at the default size
@@ -117,11 +113,10 @@ def device_time_ms(fn, iters: int) -> float:
 
 def measure(entries: int, rows: int, lanes: int, device,
             iters: int = 50, hot_row=None) -> dict:
-    """Time K6 (as dispatched, and each of its kernels that can run on this
-    tile) and K2 on the same entries on the card (CUDA events, median of
-    ``iters`` launches each, in turns K6s-K2-K2-K6s reversed, the better of
-    each pair) and hold all against the plain version. ``hot_row`` sends
-    every entry to that row. Needs a CUDA device."""
+    """Time K6 and K2 on the same entries on the card (CUDA events, median
+    of ``iters`` launches each, K6-K2-K2-K6, the better of each pair) and
+    hold both against the plain version. ``hot_row`` sends every entry to
+    that row. Needs a CUDA device."""
     from ..runtime.timing import cuda_time_ms
 
     ii_h, kk_h, vv_h, b_h = make_entries(entries, rows, lanes)
@@ -134,45 +129,32 @@ def measure(entries: int, rows: int, lanes: int, device,
                                 tile_k=rows, device=device)
     ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
     limit = MAX_ABS_ERR * max(float(ref.abs().max()), 1.0)
-    names = ["atomic"]
-    if k6.cluster_geometry(rows, lanes) is not None:
-        names.insert(0, "cluster")
-    before = dict(k6.LAUNCHES_BY_KERNEL)
     out6 = k6.entry_fma(ii, kk, vv, b, rows)     # range-checked once here
-    picked = next(k for k, v in k6.LAUNCHES_BY_KERNEL.items()
-                  if v > before[k])
     out2 = k2.spmm_stream(plan, b)
     torch.cuda.synchronize(device)
-    errs = {name: float((k6.entry_fma(ii, kk, vv, b, rows, kernel=name)
-                         - ref).abs().max()) for name in names}
     err6 = float((out6 - ref).abs().max())
     err2 = float((out2 - ref).abs().max())
-    if not all(e < limit for e in (err6, err2, *errs.values())):
-        raise AssertionError(f"max abs err K6 {err6} {errs}, K2 {err2} vs "
-                             f"the plain version, limit {limit}")
+    if not (err6 < limit and err2 < limit):
+        raise AssertionError(f"max abs err K6 {err6}, K2 {err2} vs the "
+                             f"plain version, limit {limit}")
 
-    def run6(name):
-        return lambda: k6.entry_fma(ii, kk, vv, b, rows, check_range=False,
-                                    kernel=name)
+    def run6():
+        return k6.entry_fma(ii, kk, vv, b, rows, check_range=False)
 
     def run2():
         return k2.spmm_stream(plan, b)
 
-    call = {name: cuda_time_ms(run6(name), warmup=3, iters=iters)
-            for name in names}
+    call6 = cuda_time_ms(run6, warmup=3, iters=iters)
     call2 = cuda_time_ms(run2, warmup=3, iters=iters)
-    first = {name: device_time_ms(run6(name), iters) for name in names}
+    t6a = device_time_ms(run6, iters)
     t2a = device_time_ms(run2, iters)
     t2b = device_time_ms(run2, iters)
-    dev = {name: min(first[name], device_time_ms(run6(name), iters))
-           for name in reversed(names)}
-    ms6, ms2 = dev[picked], min(t2a, t2b)
+    t6b = device_time_ms(run6, iters)
+    ms6, ms2 = min(t6a, t6b), min(t2a, t2b)
     ns6, ns2 = ms6 * 1e6 / entries, ms2 * 1e6 / entries
     return {
         "metric": "entry_fma_ns", "value": ns6, "unit": "ns/entry",
-        "kernel": picked, "kernel_ms": ms6, "call_ms": call[picked],
-        "by_kernel": {name: {"kernel_ms": dev[name], "call_ms": call[name],
-                             "max_abs_err": errs[name]} for name in names},
+        "kernel_ms": ms6, "call_ms": call6,
         "entries": entries, "rows": rows, "lanes": lanes,
         "hot_row": hot_row,
         "stream_kernel_ns": ns2, "stream_kernel_ms": ms2,

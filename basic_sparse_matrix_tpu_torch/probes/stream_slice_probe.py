@@ -1,10 +1,10 @@
 """Streaming SpMM slice probe: the two K2 kernels side by side on the card,
-the sliced kernel at every slice width, and the card's L2 gather rate.
+and the card's L2 gather rate.
 
 The sliced kernel (``ops/pallas/stream_kernel.py::spmm_stream_sliced``)
-keeps one slice of ``w`` columns of B in L2 at a time; which ``w`` that
-should be depends on how much of the L2 a gather from all SMs can really
-use, which only a run on the card can say. The probe builds a ``rows`` ×
+sweeps all rows for one slice of 32 columns of B at a time; whether that
+slice is served from L2 depends on how much of the L2 a gather from all SMs
+can really use, which only a run on the card can say. The probe builds a ``rows`` ×
 ``rows`` operand with ``per_row`` uniformly random columns a row and a
 ``lanes``-column right-hand side (the defaults are the streaming SpMM's main
 shape: 1M × 1M, 32 a row, 512 columns; about 7 GiB of device memory and some
@@ -15,17 +15,13 @@ seconds of host work) and prints one JSON object a line:
   gather rate; the probe kernel is ``l2_gather_probe_kernel`` of
   ``csrc/spmm_stream.cu``);
 * ``tile``: the tile kernel's time;
-* ``pack``: the pack kernel alone, at each width below 32;
-* ``sliced``: the sliced kernel at w = 4, 8, 16 and 32, with B packed (every
-  time includes the pack), C written row-major in 32-byte pieces or
-  slice-major and unpacked (the unpack included), and w = 32 unpacked. Each
-  is held to the tile kernel's output (max abs error; the sums are taken in
-  the same order, so 0.0 is expected) and run twice for bitwise equality;
+* ``sliced``: the sliced kernel's, held to the tile kernel's output (max
+  abs error; the sums are taken in the same order, so 0.0 is expected) and
+  run twice for bitwise equality;
 * ``dispatch``: what :func:`spmm_stream` itself launches at this shape;
 * ``long_row`` (``--long-rows 256,1024,4096``; off by default, each length
-  builds a plan of its own on the host): both kernels (the sliced one at
-  w = 32, B as it lies) on the same operand with one row, in the middle,
-  given that many entries. In the sliced kernel one group of 8 threads
+  builds a plan of its own on the host): both kernels on the same operand
+  with one row, in the middle, given that many entries. In the sliced kernel one group of 8 threads
   walks a row's slots one after another, so a long row holds its block
   back; ``LONG_ROW_ROWS`` of the wrapper is set from these times.
 
@@ -118,44 +114,32 @@ def make_operand(rows: int, per_row: int, lanes: int, device, seed: int = 1,
     return plan, torch.randn((rows, lanes), generator=gen, device=device)
 
 
-def sweep(plan, b, iters: int = 5, widths=k2.SLICE_WIDTHS[::-1]) -> list:
-    """The tile kernel, the pack kernel alone and the sliced kernel at every
-    width and C layout on one operand; a list of report dicts. Raises if a
-    sliced result differs from the tile kernel's by more than 1e-4 of
-    max|ref| or from its own second run at all."""
-    reports = []
+def sweep(plan, b, iters: int = 5) -> list:
+    """The tile kernel and the sliced kernel on one operand; a list of
+    report dicts. Raises if the sliced result differs from the tile
+    kernel's by more than 1e-4 of max|ref| or from its own second run at
+    all."""
     ref = k2.spmm_stream_tile(plan, b)
     scale = max(float(ref.abs().max()), 1.0)
-    reports.append({"kernel": "tile", "tile_m": plan.tile_m,
-                    **event_times_ms(lambda: k2.spmm_stream_tile(plan, b),
-                                     iters)})
-    slots = plan.ii.numel()
-    for w in widths:
-        modes = [(True, False), (True, True)] if w < 32 else \
-            [(False, False), (True, False)]
-        if w < 32:
-            reports.append({"kernel": "pack", "w": w, **event_times_ms(
-                lambda: k2.pack_slices_cuda(b, w), iters)})
-        for pack, c_major in modes:
-            def run():
-                return k2.spmm_stream_sliced(plan, b, w, pack=pack,
-                                             c_slice_major=c_major)
-            out = run()
-            err = float((out - ref).abs().max())
-            same = bool(torch.equal(out, run()))
-            if not (err <= 1e-4 * scale and same):
-                raise AssertionError(f"sliced kernel, w {w}: max abs err "
-                                     f"{err} vs the tile kernel, bitwise "
-                                     f"repeatable {same}")
-            del out
-            n_slices = -(-b.shape[1] // w)
-            reports.append({
-                "kernel": "sliced", "w": w, "packed_b": pack,
-                "c_slice_major": c_major,
-                "slice_bytes": plan.cols * w * 4,
-                "slot_reread_bytes": n_slices * slots * 8,
-                "max_abs_err_vs_tile": err, "bitwise_repeatable": same,
-                **event_times_ms(run, iters)})
+    reports = [{"kernel": "tile", "tile_m": plan.tile_m,
+                **event_times_ms(lambda: k2.spmm_stream_tile(plan, b),
+                                 iters)}]
+
+    def run():
+        return k2.spmm_stream_sliced(plan, b)
+    out = run()
+    err = float((out - ref).abs().max())
+    same = bool(torch.equal(out, run()))
+    if not (err <= 1e-4 * scale and same):
+        raise AssertionError(f"sliced kernel: max abs err {err} vs the tile "
+                             f"kernel, bitwise repeatable {same}")
+    del out, ref
+    w = k2.SLICE_WIDTH
+    reports.append({
+        "kernel": "sliced", "w": w, "slice_bytes": plan.cols * w * 4,
+        "slot_reread_bytes": -(-b.shape[1] // w) * plan.ii.numel() * 8,
+        "max_abs_err_vs_tile": err, "bitwise_repeatable": same,
+        **event_times_ms(run, iters)})
     return reports
 
 
@@ -165,21 +149,21 @@ def long_row_report(rows: int, per_row: int, lanes: int, long_row: int,
     the sliced result is held to the tile kernel's."""
     plan, b = make_operand(rows, per_row, lanes, device, long_row=long_row)
     ref = k2.spmm_stream_tile(plan, b)
-    err = float((k2.spmm_stream_sliced(plan, b, 32) - ref).abs().max())
+    err = float((k2.spmm_stream_sliced(plan, b) - ref).abs().max())
     if not err <= 1e-4 * max(float(ref.abs().max()), 1.0):
         raise AssertionError(f"sliced kernel, a row of {long_row}: max abs "
                              f"err {err} vs the tile kernel")
     del ref
     tile = event_times_ms(lambda: k2.spmm_stream_tile(plan, b), iters)
-    sliced = event_times_ms(lambda: k2.spmm_stream_sliced(plan, b, 32), iters)
+    sliced = event_times_ms(lambda: k2.spmm_stream_sliced(plan, b), iters)
     return {"longest_row": k2.cell_row_pointers(plan)[1],
             "cellmax": plan.cellmax, "pad_factor": plan.pad_factor,
             "max_abs_err_vs_tile": err,
-            "tile": tile, "sliced_w32": sliced}
+            "tile": tile, "sliced": sliced}
 
 
 def sweep_and_dispatch(args, device, name: str) -> None:
-    """The L2 gather rates, the width sweep and the dispatch at one shape."""
+    """The L2 gather rates, both kernels and the dispatch at one shape."""
     for nbytes in GATHER_ARRAY_BYTES:
         print(json.dumps({"probe": "l2_gather", "array_bytes": nbytes,
                           "piece_bytes": PIECE_BYTES,
@@ -213,7 +197,7 @@ def main(argv=None) -> None:
                     help="comma-separated lengths of one long row to time "
                          "both kernels on (default: none)")
     ap.add_argument("--no-sweep", action="store_true",
-                    help="skip the L2 gather rates and the width sweep")
+                    help="skip the L2 gather rates and the two-kernel sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stream_slice_probe: no CUDA device; the probe "

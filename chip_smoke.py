@@ -15,9 +15,9 @@ Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. Device: the card's name and ``nvidia-smi``'s name and power limit.
-2. Build: the K1 (BSR), K2 (streaming: tile, sliced and pack kernels), K3
-   (run reads), K4/K5 (add-back) and K6 (per-entry FMA: atomic and cluster
-   kernels) kernels from
+2. Build: the K1 (BSR), K2 (streaming: tile and sliced kernels), K3 (run
+   reads), K4/K5 (add-back: span and rect entries) and K6 (per-entry FMA)
+   kernels from
    ``basic_sparse_matrix_tpu_torch/csrc`` with nvcc, one process per
    source, timed; the ptxas register/spill lines.
 3. Kernel vs plain: each kernel and its plain PyTorch version on the card
@@ -32,10 +32,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    against ``spmm_stream_reference`` at the main shape, timed in turns
    (plain-tile-sliced-sliced-tile-plain, median of 5 with min and max); the
    sliced kernel must be bitwise equal across two calls and be the one
-   ``spmm_stream`` dispatches to there; the slice-width sweep (w = 4, 8, 16,
-   32, packed and unpacked B, strided and slice-major C; every time with
-   its pack and unpack inside), the pack kernel alone, and the card's
-   gather rate for 32-byte pieces by array size; a ``spmm_stream`` call on
+   ``spmm_stream`` dispatches to there; the card's gather rate for 32-byte
+   pieces by array size; a ``spmm_stream`` call on
    a B that fits the L2 budget and on a plan with several k tiles, which
    the dispatch sends to the tile kernel, each held to the plain version.
    The ``spmm_stream`` entry of ``kernels`` reports the dispatched kernel
@@ -65,10 +63,22 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    to them. ``b = A·x_true`` for a seeded ``x_true``: the normwise backward
    error must be <= 1e-4 and the forward error <= 1e-3.
 7. Kernel vs plain for K3, K4 and K5 at that schedule's shapes: K3 on the
-   largest group's update-read starts, K4 on the largest K4 group's
-   slots, K5 on the K5 group's slots (real starts and live lengths,
-   seeded values), each against its plain version on the card, then
-   timed.
+   largest group's update-read starts; the add-back's span entry on the
+   largest K4 group's slots and on the K5 group's slots (real starts and
+   live lengths, seeded values); its rect entry (what the main path
+   launches on the card) on the same two groups' ``tcp``, ``tnr``, ``twd``
+   with seeded rects; each against its plain version on the card
+   (``|d| <= 1e-5 * max(1, max|ref|)`` for the add-back: atomic adds in
+   another order), then timed in turns plain-kernel-kernel-plain, at the
+   host's pace and with the launches queued behind a spin kernel (device
+   only); each beside the one PyTorch call for the same function, an
+   ``index_add_`` with its positions built (the span entry's over the live
+   spans, the rect entry's the masked one of
+   ``supernodal_scatter="delta"``). The ``kernels`` rows of K4 and K5 carry
+   the rect entry's numbers, the kernel their launches on the main path
+   are of; the span entry's ride along under ``span_entry``. Each bound
+   counts what the function needs: tables, nonzero elements, touched
+   factor values, not a dead slot's row.
 8. Per formulation: at k = 14 (n = 2744), the factor on the card against
    the factor on the CPU (plain versions) under ``supernodal_scatter`` =
    auto, vmem and pallas with ``supernodal_gather="kernel"``, with TF32
@@ -129,16 +139,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     a temporary directory, entry for entry. (``save_direct`` →
     ``load_direct`` → solve runs in phase 10, on each banded solver, under
     the same error limits.)
-18. K6: BOTH kernels of ``entry_fma`` (atomic and cluster) against
-    ``entry_fma_reference`` at the probe's default shape (8192 entries,
-    4096 rows, 128 lanes), at 512 lanes and with every entry in one row
-    (max abs error < 1e-4 of the larger of 1 and max|ref|); each kernel's,
-    the plain version's and ``torch.sparse.mm``'s (COO) times; at K2's own
-    entries (phase 3) the atomic kernel runs and the cluster kernel must
-    refuse the 2 GB tile; then the probe (``probes/entry_fma_probe.py``),
-    K6's main path: ns per entry of each kernel beside K2's on the same
-    entries, and beside K2's at its own shape from phase 3. The launch counter is set to 0 right before the probe and read
-    right after.
+18. K6: ``entry_fma`` against ``entry_fma_reference`` at the probe's
+    default shape (8192 entries, 4096 rows, 128 lanes), at 512 lanes and
+    with every entry in one row (max abs error < 1e-4 of the larger of 1
+    and max|ref|); the kernel's, the plain version's and
+    ``torch.sparse.mm``'s (COO) times; K6 on K2's own entries (phase 3);
+    then the probe (``probes/entry_fma_probe.py``), K6's main path: ns per
+    entry beside K2's on the same entries, and beside K2's at its own shape
+    from phase 3. The launch counter is set to 0 right before the probe and
+    read right after.
 
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
@@ -595,8 +604,8 @@ def time_turns(plain, kerns: dict, iters: int) -> dict:
 
 def stream_kernels_vs_plain(plan, a_st, b_st) -> tuple:
     """Phase 3 for K2: both kernels of ``spmm_stream`` against the plain
-    version at the main shape, timed in turns; the slice-width sweep, the
-    pack kernel alone and the L2 gather rate; K6 on the same entries; a call
+    version at the main shape, timed in turns; the L2 gather rate; K6 on the
+    same entries; a call
     on operands the dispatch sends to the tile kernel. Returns the
     ``kernels`` entry of the kernel the main path dispatches to and its ns
     per entry."""
@@ -616,7 +625,7 @@ def stream_kernels_vs_plain(plan, a_st, b_st) -> tuple:
                              "kernel")
     ref = k2.spmm_stream_reference(plan, b_st)
     runs = {"tile": lambda: k2.spmm_stream_tile(plan, b_st),
-            "sliced": lambda: k2.spmm_stream_sliced(plan, b_st, w)}
+            "sliced": lambda: k2.spmm_stream_sliced(plan, b_st)}
     outs, errs = {}, {}
     for name, run in runs.items():
         outs[name] = run()
@@ -673,19 +682,6 @@ def stream_kernels_vs_plain(plan, a_st, b_st) -> tuple:
         f"byte model nnz*(8+4n) + rows*n*4 (tile kernel "
         f"{gather_bytes / times['tile']['ms'] / 1e6:.1f})")
 
-    log("  slice-width sweep (every sliced time includes the pack where B is "
-        "packed and the unpack where C is slice-major; median / min / max "
-        "of 3):")
-    for rep in sp.sweep(plan, b_st, iters=3):
-        what = rep["kernel"] if rep["kernel"] != "sliced" else (
-            f"sliced w {rep['w']}, B "
-            f"{'packed' if rep['packed_b'] else 'as it lies'}, C "
-            f"{'slice-major + unpack' if rep['c_slice_major'] else 'strided'}"
-            f", slice {rep['slice_bytes'] / 1e6:.0f} MB")
-        if rep["kernel"] == "pack":
-            what = f"pack alone, w {rep['w']}"
-        log(f"    {what}: {rep['ms']:.3f} / {rep['min_ms']:.3f} / "
-            f"{rep['max_ms']:.3f} ms")
     rates = {nbytes: sp.l2_gather_gbps(nbytes, dev)
              for nbytes in sp.GATHER_ARRAY_BYTES}
     log("  gather of 32-byte pieces at hashed addresses, GB/s by array size: "
@@ -722,12 +718,14 @@ def stream_kernels_vs_plain(plan, a_st, b_st) -> tuple:
 
 
 def solver_kernels_vs_plain(solver, gen) -> list:
-    """Phase 7: K3, K4 and K5 against their plain versions at the main
-    path's shapes."""
+    """Phase 7: K3 and both entries of the add-back kernel (K4, K5) against
+    their plain versions at the main path's shapes."""
     from basic_sparse_matrix_tpu_torch.models import supernodal as sn
     from basic_sparse_matrix_tpu_torch.ops.pallas import addback_resident as k4
     from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback as k5
     from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read as k3
+    from basic_sparse_matrix_tpu_torch.probes.addback_probe import (
+        index_add_tail, seeded_rects)
 
     sched = solver.sched
     scratch = sched.nnz_l
@@ -782,7 +780,8 @@ def solver_kernels_vs_plain(solver, gen) -> list:
     modes = [sn._group_delta(sched, g, "auto") for g in range(sched.n_groups)]
     g4 = max((g for g in range(sched.n_groups) if modes[g] == "vmem"),
              key=lambda g: sched.tabs[g][tab["tgt_cp"]][0].numel())
-    tcp, tnr, twd = targets(g4)
+    rect4 = targets(g4)
+    tcp, tnr, twd = rect4
     cq, col_pad = sched.vmem_shape[g4]
     st, wt = tcp.shape
     psh2 = live_rows(tnr, twd, tcp, col_pad, (st, wt, col_pad), gen)
@@ -797,7 +796,8 @@ def solver_kernels_vs_plain(solver, gen) -> list:
                f"{int((tcpf >= 0).sum())} live slots")
 
     g5 = next(g for g in range(sched.n_groups) if modes[g] == "pallas")
-    tcp, tnr, twd = targets(g5)
+    rect5 = targets(g5)
+    tcp, tnr, twd = rect5
     st, wt = tcp.shape
     col_len = sn._colq(sched.delta_rmax[g5]) + 1024
     st_q, wt_q = sn._pow2(st), sn._pow2(wt)
@@ -808,36 +808,119 @@ def solver_kernels_vs_plain(solver, gen) -> list:
     k5_desc = (f"group {g5}, psh {tuple(psh.shape)} (St {st}, Wt {wt}), "
                f"{int(twd.sum())} live columns")
 
-    for name, mod, kern, plain, args, desc, replaces in (
-            ("addback_resident", k4, k4.addback_resident,
-             k4.addback_resident_reference, k4_args, k4_desc,
-             "basic_sparse_matrix_tpu/ops/pallas/addback_resident.py:106"),
-            ("panel_addback", k5, k5.panel_addback,
-             k5.panel_addback_reference, k5_args, k5_desc,
-             "basic_sparse_matrix_tpu/ops/pallas/panel_addback.py:135")):
-        got = kern(lvals.clone(), *args)
-        torch.cuda.synchronize()
-        err = compare(f"{name} kernel vs plain ({desc})", got,
-                      plain(lvals.clone(), *args))
-        del got
+    # The span entry (what addback_resident / panel_addback launch when
+    # called by name; the main path launches it no time on the card).
+    spans = {}
+    for name, kern, plain, args, desc in (
+            ("addback_resident", k4.addback_resident,
+             k4.addback_resident_reference, k4_args, k4_desc),
+            ("panel_addback", k5.panel_addback,
+             k5.panel_addback_reference, k5_args, k5_desc)):
+        rows = args[0]
+        nz = int((rows != 0).sum())
+        timing = addback_vs_plain(
+            f"{name} (span entry; {desc}; {nz} nonzero row elements, rows "
+            f"{rows.numel() * 4 / 2**20:.1f} MiB)", lvals,
+            lambda lv: kern(lv, *args), lambda lv: plain(lv, *args))
+        ref = plain(lvals.clone(), *args)
         work = lvals.clone()
-        ms, plain_ms, four = time_pair(lambda: kern(work, *args),
-                                       lambda: plain(work, *args), 20)
-        nz = int((args[0] != 0).sum())
-        log(f"  {name}: kernel {four[1]:.4f} / {four[2]:.4f} ms, plain "
-            f"{four[0]:.4f} / {four[3]:.4f} ms; {nz} nonzero row elements, "
-            f"{nz / ms / 1e6:.1f} G atomic adds/s, rows {args[0].numel() * 4 / 2**20:.1f} MiB")
-        # rows and starts read, the touched factor values read and written
-        # (at most all of lvals), one add per nonzero row element
+        lib_ms = library_time(
+            f"index_add_ with its positions built ({name}'s operands)",
+            lambda: lambda: plain(work, *args), ref, 20)
+        # What the function needs: the tables (every slot's start, K5's
+        # twd), the nonzero row elements (a dead slot's row and a run's
+        # trailing zeros change nothing and need not be read), the touched
+        # factor values read and written (at most all of lvals); one add per
+        # nonzero row element.
+        tables = sum(t.numel() for t in args[1:])
         touched = min(nz, lvals.numel())
+        spans[name] = {
+            "entry": "bsm_addback", "route": "cuda", "launches": 0, **timing,
+            **bound(4 * (tables + nz + 2 * touched), float(nz)),
+            "bound_ms_reading_all_rows": bound(
+                4 * (tables + rows.numel() + 2 * touched),
+                float(nz))["bound_ms"],
+            "library_ms": lib_ms, "nonzero_row_elements": nz}
+        del ref, work
+    del k4_args, k5_args, psh, psh2
+
+    # The rect entry, what the main path launches on the card, through the
+    # K4 module's wrapper on "vmem" levels and the K5 module's on "pallas"
+    # levels: the same two groups' target tables with seeded rects. Each
+    # row's times, bound and launches are the rect entry's; the span entry's
+    # numbers ride along under "span_entry".
+    for name, label, launch, gi, (tcp, tnr, twd), replaces in (
+            ("addback_resident", "K4", k4.addback_rects, g4, rect4,
+             "basic_sparse_matrix_tpu/ops/pallas/addback_resident.py:106"),
+            ("panel_addback", "K5", k5.panel_addback_rects, g5, rect5,
+             "basic_sparse_matrix_tpu/ops/pallas/panel_addback.py:135")):
+        p = seeded_rects(tcp, tnr, twd, sched.delta_rmax[gi], gen)
+        live = int((p != 0).sum())
+        desc = (f"{launch.__name__} (rect entry; {label} group {gi}, p "
+                f"{tuple(p.shape)} = {p.numel() * 4 / 2**20:.1f} MiB, {live} "
+                f"live elements)")
+        timing = addback_vs_plain(
+            desc, lvals, lambda lv: launch(lv, p, tcp, tnr, twd),
+            lambda lv: k4.addback_rects_reference(lv, p, tcp, tnr, twd))
+        ref = k4.addback_rects_reference(lvals.clone(), p, tcp, tnr, twd)
+        work = lvals.clone()
+        lib_ms = library_time(
+            f"index_add_ with its positions built ({label} group {gi})",
+            lambda: lambda: index_add_tail(work, p, tcp, tnr, twd, scratch),
+            ref[:scratch], 20)
+        # the live elements of p, tcp, tnr and twd read, the touched factor
+        # values read and written, one add per live element
+        touched = min(live, lvals.numel())
+        tables = tcp.numel() + 2 * tnr.numel()
         out.append({"name": name,
                     "source": "basic_sparse_matrix_tpu_torch/csrc/addback.cu",
-                    "replaces": replaces, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms,
-                    **bound(4 * (args[0].numel() + args[1].numel()
-                                 + 2 * touched), float(nz)),
-                    "library_ms": None})
+                    "replaces": replaces, "entry": "bsm_addback_rects",
+                    "wrapper": launch.__name__, **timing,
+                    **bound(4 * (live + tables + 2 * touched), float(live)),
+                    "bound_ms_reading_all_of_p": bound(
+                        4 * (p.numel() + tables + 2 * touched),
+                        float(live))["bound_ms"],
+                    "library_ms": lib_ms, "group": gi,
+                    "rect_shape": list(p.shape), "live_elements": live,
+                    "span_entry": spans[name]})
+        del p, ref, work
     return out
+
+
+# |kernel - plain| <= ADDBACK_TOL * max(1, max|ref|) for both add-back
+# entries: the same float32 adds, in the order the atomics land.
+ADDBACK_TOL = 1e-5
+
+
+def addback_vs_plain(desc: str, lvals, kern, plain) -> dict:
+    """Hold an add-back entry (``kern(lv)``, in place) to its plain version
+    on a copy of ``lvals``, then time both in turns plain-kernel-kernel-plain:
+    event pairs at the host's pace (min and max of the kernel's two turns)
+    and, for the kernel, with the launches queued behind a spin kernel
+    (device only)."""
+    from basic_sparse_matrix_tpu_torch.probes.entry_fma_probe import (
+        device_time_ms)
+
+    got = kern(lvals.clone())
+    torch.cuda.synchronize()
+    ref = plain(lvals.clone())
+    err = float((got - ref).abs().max())
+    limit = ADDBACK_TOL * max(1.0, float(ref.abs().max()))
+    log(f"  {desc}: max abs err {err:.3e} (limit {limit:.3e})")
+    if not (bool(torch.isfinite(got).all()) and err <= limit):
+        raise AssertionError(f"{desc}: kernel differs from its plain version")
+    del got, ref
+    work = lvals.clone()
+    ms, plain_ms, four = time_pair(lambda: kern(work), lambda: plain(work),
+                                   20)
+    dev = [device_time_ms(lambda: kern(work), 50) for _ in range(2)]
+    log(f"    a call at the host's pace: kernel {four[1]:.4f} / {four[2]:.4f} "
+        f"ms, plain {four[0]:.4f} / {four[3]:.4f} ms (medians of 20, "
+        f"plain-kernel-kernel-plain); device only: kernel {dev[0]:.4f} / "
+        f"{dev[1]:.4f} ms (medians of 50)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "min_ms": min(four[1:3]), "max_ms": max(four[1:3]),
+            "device_ms": min(dev)}
 
 
 class MatmulTf32Probe(TorchFunctionMode):
@@ -1330,24 +1413,11 @@ def k6_on_stream_entries(plan, b, out_k2, k2_ns: float) -> None:
     ii = (plan.ii[:, 0, :] + base[:, None]).reshape(-1).contiguous()
     kk = plan.kk.reshape(-1)
     vv = plan.vv.reshape(-1)
-    before = dict(k6.LAUNCHES_BY_KERNEL)
     out = k6.entry_fma(ii, kk, vv, b, plan.rows)
     torch.cuda.synchronize()
     compare("entry_fma on the stream plan's entries vs spmm_stream", out,
             out_k2)
     del out
-    # a 2 GB tile fits no cluster's shared memory: the atomic kernel, and the
-    # cluster kernel refuses
-    if k6.LAUNCHES_BY_KERNEL["atomic"] != before["atomic"] + 1 \
-            or k6.cluster_geometry(plan.rows, int(b.shape[1])) is not None:
-        raise AssertionError("entry_fma at K2's shape: not the atomic kernel")
-    try:
-        k6.entry_fma(ii, kk, vv, b, plan.rows, check_range=False,
-                     kernel="cluster")
-    except ValueError as err:
-        log(f"  entry_fma cluster kernel at this shape: refused ({err})")
-    else:
-        raise AssertionError("the cluster kernel took a tile that cannot fit")
     ms = cuda_time_ms(lambda: k6.entry_fma(ii, kk, vv, b, plan.rows,
                                            check_range=False),
                       warmup=1, iters=3)
@@ -1536,7 +1606,6 @@ def k6_phase(dev, k2_main: float) -> dict:
 
     log("entry_fma (K6) vs plain on the card:")
     entries, rows = 8192, 4096
-    worst = 0.0
     timing = {}
     for label, lanes, hot in (("default shape", 128, None),
                               ("512 lanes", 512, None),
@@ -1549,38 +1618,25 @@ def k6_phase(dev, k2_main: float) -> dict:
         ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
         scale = max(float(ref.abs().max()), 1.0)
         ref64 = probe.oracle(ii_h, kk_h, vv_h, b_h, rows)
-        picked = k6.DEFAULT_KERNEL
-        geo = k6.cluster_geometry(rows, lanes)
-        errs = {}
-        for name in ("atomic", "cluster"):
-            before = dict(k6.LAUNCHES_BY_KERNEL)
-            out = k6.entry_fma(ii, kk, vv, b, rows, kernel=name)
-            torch.cuda.synchronize()
-            if k6.LAUNCHES_BY_KERNEL[name] != before[name] + 1:
-                raise AssertionError(f"entry_fma {name}: not launched")
-            errs[name] = float((out - ref).abs().max())
-            err64 = float(np.abs(out.double().cpu().numpy() - ref64).max())
-            log(f"  entry_fma {name} kernel, {label} (E {entries}, R {rows}, "
-                f"lanes {lanes}): max abs err vs plain {errs[name]:.3e}, vs "
-                f"float64 {err64:.3e} (limit {K6_MAX_ABS_ERR:g} x "
-                f"{scale:.3g})")
-            if not (errs[name] < K6_MAX_ABS_ERR * scale
-                    and err64 < K6_MAX_ABS_ERR * scale):
-                raise AssertionError(f"entry_fma {name} {label}: error over "
-                                     f"the limit")
-        err = errs[picked]
-        times = time_turns(
-            lambda: k6.entry_fma_reference(ii, kk, vv, b, rows),
-            {name: (lambda name=name: k6.entry_fma(
-                ii, kk, vv, b, rows, check_range=False, kernel=name))
-             for name in ("atomic", "cluster")}, 50)
-        ms, plain_ms = times[picked]["ms"], times["plain"]["ms"]
-        log(f"  entry_fma, {label}: dispatch takes {picked!r}; cluster cut "
-            f"{geo}; a call at the host's pace, ms (min, max): "
-            + "; ".join(f"{name} {t['ms']:.4f} ({t['min_ms']:.4f}, "
-                        f"{t['max_ms']:.4f})" for name, t in times.items())
-            + " (median of 50, plain-atomic-cluster-cluster-atomic-plain)")
-        worst = max(worst, err / scale)
+        before = k6.LAUNCHES
+        out = k6.entry_fma(ii, kk, vv, b, rows)
+        torch.cuda.synchronize()
+        if k6.LAUNCHES != before + 1:
+            raise AssertionError("entry_fma: not launched")
+        err = float((out - ref).abs().max())
+        err64 = float(np.abs(out.double().cpu().numpy() - ref64).max())
+        log(f"  entry_fma, {label} (E {entries}, R {rows}, lanes {lanes}): "
+            f"max abs err vs plain {err:.3e}, vs float64 {err64:.3e} (limit "
+            f"{K6_MAX_ABS_ERR:g} x {scale:.3g})")
+        if not (err < K6_MAX_ABS_ERR * scale
+                and err64 < K6_MAX_ABS_ERR * scale):
+            raise AssertionError(f"entry_fma {label}: error over the limit")
+        ms, plain_ms, four = time_pair(
+            lambda: k6.entry_fma(ii, kk, vv, b, rows, check_range=False),
+            lambda: k6.entry_fma_reference(ii, kk, vv, b, rows), 50)
+        log(f"  entry_fma, {label}: a call at the host's pace, kernel "
+            f"{four[1]:.4f} / {four[2]:.4f} ms, plain {four[0]:.4f} / "
+            f"{four[3]:.4f} ms (median of 50, plain-kernel-kernel-plain)")
         if hot is None and lanes == 128:
             def coo_library():
                 t = torch.sparse_coo_tensor(
@@ -1597,29 +1653,18 @@ def k6_phase(dev, k2_main: float) -> dict:
                       "library_ms": lib_ms}
     # the probe is K6's main path: counts set to 0 right before, read after
     zero_launches()
-    by_kernel = dict(k6.LAUNCHES_BY_KERNEL)
     reports = [probe.measure(entries, rows, lanes, dev)
                for lanes in probe.DEFAULT_LANES]
     reports.append(probe.measure(entries, rows, probe.DEFAULT_LANES[0], dev,
                                  hot_row=17))
     launches = read_launches()
-    # the probe runs both K6 kernels: the count reported is that of the
-    # kernel the dispatch takes
-    by_kernel = {name: count - by_kernel[name]
-                 for name, count in k6.LAUNCHES_BY_KERNEL.items()}
-    if sum(by_kernel.values()) != launches["entry_fma"]:
-        raise AssertionError(f"entry_fma launches {launches['entry_fma']} "
-                             f"are not the kernels' {by_kernel}")
     for rep in reports:
-        both = "; ".join(
-            f"{name} kernel {t['kernel_ms'] * 1e3:.2f} us with the stream "
-            f"kept busy, {t['call_ms'] * 1e3:.2f} us a call"
-            for name, t in rep["by_kernel"].items())
         log(f"  probe, lanes {rep['lanes']}"
             + (f", every entry in row {rep['hot_row']}"
                if rep["hot_row"] is not None else "")
-            + f": entry_fma ({rep['kernel']} kernel by dispatch) "
-            f"{rep['value']:.3f} ns per entry; {both}; spmm_stream on the "
+            + f": entry_fma {rep['value']:.3f} ns per entry (kernel "
+            f"{rep['kernel_ms'] * 1e3:.2f} us with the stream kept busy, "
+            f"{rep['call_ms'] * 1e3:.2f} us a call); spmm_stream on the "
             f"same entries {rep['stream_kernel_ns']:.3f} ns per entry (kernel "
             f"{rep['stream_kernel_ms'] * 1e3:.2f} us, "
             f"{rep['stream_call_ms'] * 1e3:.2f} us a call; tile_m "
@@ -1633,8 +1678,7 @@ def k6_phase(dev, k2_main: float) -> dict:
     return {"name": "entry_fma", "route": "cuda",
             "source": "basic_sparse_matrix_tpu_torch/csrc/entry_fma.cu",
             "replaces": "benchmarks/entry_fma_probe.py:67",
-            "launches": by_kernel[k6.DEFAULT_KERNEL], **timing,
-            "kernel": k6.DEFAULT_KERNEL, "launches_by_kernel": by_kernel}
+            "launches": launches["entry_fma"], **timing}
 
 
 def main() -> None:
@@ -1806,6 +1850,9 @@ def main() -> None:
 
     # ---- 7. K3-K5 kernel vs plain at the solver's shapes -----------------
     log("solver kernels vs plain on the card:")
+    # On the card the main path reaches the add-back kernel through its rect
+    # entry only, by the K4 module's wrapper on "vmem" levels and the K5
+    # module's on "pallas" levels: each row's launches are that wrapper's.
     for k in solver_kernels_vs_plain(main["solver"], gen):
         kernels.append({"route": "cuda",
                         "launches": main["launches"][k["name"]], **k})

@@ -1,11 +1,13 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes (unaligned rows, columns and RHS
 widths, thin and fat BSR tiles, both vector widths and several column
-slices of the streaming tile kernel, every slice width of the sliced one
-and the dispatch between the two; unaligned run starts, dead slots, runs past
-the end and overlapping add-back spans for the supernodal kernels; ragged
+slices of the streaming tile kernel, the sliced one and the dispatch
+between the two; unaligned run starts, dead slots, runs past
+the end and overlapping add-back spans for the supernodal kernels, every
+destination alignment and class width of the add-back's span entry and
+ragged, masked and misaligned rects for its rect entry; ragged
 entry counts, widths that are no multiple of 4 or 32 and one hot row for
-both kernels of the per-entry FMA).
+the per-entry FMA).
 
 These need a CUDA device and nvcc; without a device every test skips. On a
 GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -13,7 +15,8 @@ GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
 use).
 Tolerance: float32 summed in another order, ``rtol=1e-4`` and ``atol=1e-4``
 times the largest reference magnitude. The run reads (K3) copy values and
-must match exactly. K1's ``HIGHEST`` (3×TF32) must also come within 1e-5
+must match exactly. The add-back entries (K4/K5) are held to ``|d| <=
+1e-5 * max(1, max|ref|)`` (atomic adds in another order). K1's ``HIGHEST`` (3×TF32) must also come within 1e-5
 of max|ref| of a float64 product at depth 2048, TF32 switched on or not,
 and one TF32 pass (``DEFAULT``) must be at least 10× further off.
 """
@@ -177,8 +180,8 @@ def test_spmm_stream_kernel_matches_plain(cuda, rows, cols, nnz, n_rhs,
                                           tile_m, tile_k, kernel):
     """Both K2 kernels on the same cases. The sliced kernel takes the
     entries in row order (what ``stream_plan_from_ell`` gives it), under
-    one k tile, at every slice width, packed and unpacked, and refuses a
-    plan with several k tiles and a width that is no multiple of 4."""
+    one k tile, and refuses a plan with several k tiles and a width that is
+    no multiple of 4."""
     rng = np.random.default_rng(7)
     ri = rng.integers(0, rows, nnz)
     ci = rng.integers(0, cols, nnz)
@@ -196,25 +199,23 @@ def test_spmm_stream_kernel_matches_plain(cuda, rows, cols, nnz, n_rhs,
                             device=cuda).float()
     ref = k2.spmm_stream_reference(plan, b)
     if kernel == "tile":
-        runs = [lambda: k2.spmm_stream(plan, b)]
+        def run():
+            return k2.spmm_stream(plan, b)
     elif n_rhs % 4 or plan.n_kt != 1:
         with pytest.raises(ValueError):
-            k2.spmm_stream_sliced(plan, b, 8)
+            k2.spmm_stream_sliced(plan, b)
         return
     else:
-        runs = [lambda w=w, pack=pack, cm=cm: k2.spmm_stream_sliced(
-            plan, b, w, pack=pack, c_slice_major=cm)
-            for w in k2.SLICE_WIDTHS
-            for pack, cm in ((True, False), (False, False), (True, True))]
-    for run in runs:
-        before = (k2.LAUNCHES, k2.LAUNCHES_BY_KERNEL[kernel])
-        out = run()
-        torch.cuda.synchronize()
-        assert (k2.LAUNCHES, k2.LAUNCHES_BY_KERNEL[kernel]) == (
-            before[0] + 1, before[1] + 1)
-        _close(out, ref)
-        _close(out, ref64)
-        assert torch.equal(out, run())      # no atomics: bitwise repeatable
+        def run():
+            return k2.spmm_stream_sliced(plan, b)
+    before = (k2.LAUNCHES, k2.LAUNCHES_BY_KERNEL[kernel])
+    out = run()
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.LAUNCHES_BY_KERNEL[kernel]) == (
+        before[0] + 1, before[1] + 1)
+    _close(out, ref)
+    _close(out, ref64)
+    assert torch.equal(out, run())      # no atomics: bitwise repeatable
 
 
 def _row_sorted_plan(rng, rows, cols, per_row, tile_m, cuda, long_row=None,
@@ -236,27 +237,25 @@ def _row_sorted_plan(rng, rows, cols, per_row, tile_m, cuda, long_row=None,
 
 
 @pytest.mark.parametrize(
-    "rows,cols,per_row,n_rhs,budget,want,long_row,empty,force_w",
+    "rows,cols,per_row,n_rhs,budget,want,long_row,empty,force",
     [
-        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, 4),
-        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, 8),
-        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, 32),
-        (3000, 5000, 8, 20, 1 << 18, ("sliced", 32), None, None, 8),  # N % w
-        (3000, 5000, 8, 40, 1 << 18, ("sliced", 32), None, None, 16),
-        (3000, 5000, 12, 64, 1 << 20, ("tile", 0), 1200, None, 8),  # 100x
-        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, (32, 48), 8),
-        (3000, 5000, 8, 64, 5000 * 64 * 4, ("tile", 0), None, None, 32),
-        (3000, 5000, 8, 62, 1 << 20, ("tile", 0), None, None, None),  # N % 4
+        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, None, True),
+        (3000, 5000, 8, 20, 1 << 18, ("sliced", 32), None, None, True),  # N % w
+        (3000, 5000, 8, 40, 1 << 18, ("sliced", 32), None, None, True),
+        (3000, 5000, 12, 64, 1 << 20, ("tile", 0), 1200, None, True),  # 100x
+        (3000, 5000, 8, 64, 1 << 20, ("sliced", 32), None, (32, 48), True),
+        (3000, 5000, 8, 64, 5000 * 64 * 4, ("tile", 0), None, None, True),
+        (3000, 5000, 8, 62, 1 << 20, ("tile", 0), None, None, False),  # N % 4
     ],
 )
 def test_spmm_stream_dispatch_on_the_card(cuda, monkeypatch, rows, cols,
                                           per_row, n_rhs, budget, want,
-                                          long_row, empty, force_w):
+                                          long_row, empty, force):
     """``spmm_stream`` crosses from one kernel to the other by shape alone
     (the L2 budget is lowered to bring the crossing to a small operand: a
     ``B`` over the budget takes the sliced kernel at w = 32, one that fits
     it, a ragged width or a row 100x the average the tile kernel); the
-    kernel it takes and the sliced kernel at a forced width agree with the
+    kernel it takes and the sliced kernel called by name agree with the
     plain version and the tile kernel, and the result is bitwise equal
     across two calls."""
     monkeypatch.setattr(k2, "L2_SLICE_BUDGET_BYTES", budget)
@@ -278,11 +277,11 @@ def test_spmm_stream_dispatch_on_the_card(cuda, monkeypatch, rows, cols,
     ref = k2.spmm_stream_reference(plan, b)
     _close(out, ref)
     assert torch.equal(out, k2.spmm_stream(plan, b))
-    if force_w is not None:
-        forced = k2.spmm_stream_sliced(plan, b, force_w)
+    if force:
+        forced = k2.spmm_stream_sliced(plan, b)
         _close(forced, ref)
         _close(forced, k2.spmm_stream_tile(plan, b))
-        assert torch.equal(forced, k2.spmm_stream_sliced(plan, b, force_w))
+        assert torch.equal(forced, k2.spmm_stream_sliced(plan, b))
     if empty is not None:
         assert not out[empty[0]:empty[1]].any()
 
@@ -302,18 +301,8 @@ def test_spmm_stream_unsorted_cells_keep_the_tile_kernel(cuda, monkeypatch):
     _close(k2.spmm_stream(plan, b), k2.spmm_stream_reference(plan, b))
     assert k2.LAUNCHES_BY_KERNEL["tile"] == before["tile"] + 1
     with pytest.raises(ValueError):
-        k2.spmm_stream_sliced(plan, b, 8)
+        k2.spmm_stream_sliced(plan, b)
     assert k2.LAUNCHES_BY_KERNEL["sliced"] == before["sliced"]
-
-
-def test_pack_slices_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(13)
-    for k, n in ((1000, 64), (777, 20), (5, 512), (3000, 36)):
-        b = torch.as_tensor(rng.standard_normal((k, n)).astype(np.float32),
-                            device=cuda)
-        for w in k2.SLICE_WIDTHS:
-            assert torch.equal(k2.pack_slices_cuda(b, w),
-                               k2.pack_slices(b, w))
 
 
 def test_mul_dense_reaches_each_kernel(cuda):
@@ -484,6 +473,186 @@ def test_panel_addback_kernel_matches_plain(cuda, st, wt, col_len, n):
     _close(out, ref)
 
 
+def _tight(out, ref):
+    """The add-back entries against their plain versions: float32 adds in
+    another order (atomics), ``|d| <= 1e-5 * max(1, max|ref|)``."""
+    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+    err = float((out - ref).abs().max()) if ref.numel() else 0.0
+    assert out.shape == ref.shape and err <= 1e-5 * scale, err
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("len_mod", [0, 1, 2, 3])
+@pytest.mark.parametrize("start_mod", [0, 1, 2, 3])
+def test_addback_span_entry_alignments(cuda, start_mod, len_mod, holes, cut):
+    """Every destination alignment against every row length mod 4 (the
+    vector kernel for 0, the scalar one else), with zeros inside the run and
+    with spans cut by the end of ``lvals``: the head/body/tail split and the
+    end-of-run scan add each live element once and drop what falls off."""
+    rng = np.random.default_rng(16 * start_mod + 4 * len_mod + 2 * holes + cut)
+    nslots, length, n = 24, 640 + len_mod, 5000
+    rows = np.zeros((nslots, length), np.float32)
+    for c in range(nslots):
+        ln = int(rng.integers(1, length + 1))
+        rows[c, :ln] = rng.standard_normal(ln)
+        if holes:       # zero runs inside the live part, longer than a scan step
+            z0 = int(rng.integers(0, ln))
+            rows[c, z0: z0 + 200] = 0.0
+            rows[c, ln - 1] = 1.5
+    rows[3] = 0.0                                   # a live slot of zeros
+    starts = (4 * rng.integers(0, (n - length) // 4, nslots)
+              + start_mod).astype(np.int32)
+    if cut:
+        starts[:8] = n - np.arange(1, 9) * 37 - start_mod
+    starts[5] = -1
+    lv0 = rng.standard_normal(n).astype(np.float32)
+    args = (torch.as_tensor(rows, device=cuda),
+            torch.as_tensor(starts, device=cuda))
+    out = k4.addback_resident(torch.as_tensor(lv0, device=cuda), *args)
+    torch.cuda.synchronize()
+    _tight(out, k4.addback_resident_reference(
+        torch.as_tensor(lv0, device=cuda), *args))
+
+
+@pytest.mark.parametrize("col_pad", [512, 2048, 8192])
+def test_addback_span_entry_at_every_class_width(cuda, col_pad):
+    """The K4 class widths of ``models/supernodal._VMEM_COL_CLASSES``: rows
+    of one to sixteen parts, runs that end anywhere, a quarter dead."""
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+
+    assert col_pad in sn._VMEM_COL_CLASSES
+    rng = np.random.default_rng(col_pad)
+    n, nslots = 60000, 96
+    rows, starts = _spans(rng, nslots, col_pad, n)
+    lv0 = rng.standard_normal(n).astype(np.float32)
+    args = (torch.as_tensor(rows, device=cuda),
+            torch.as_tensor(starts, device=cuda))
+    out = k4.addback_resident(torch.as_tensor(lv0, device=cuda), *args)
+    torch.cuda.synchronize()
+    _tight(out, k4.addback_resident_reference(
+        torch.as_tensor(lv0, device=cuda), *args))
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_addback_entries_take_a_misaligned_lvals_view(cuda, shift):
+    """``lvals`` that starts 4, 8 or 12 bytes past a 16-byte boundary: the
+    quads follow the address, not the index, and nothing outside the view
+    changes."""
+    rng = np.random.default_rng(shift)
+    n = 4000
+    base = torch.as_tensor(rng.standard_normal(n + 8).astype(np.float32),
+                           device=cuda)
+    keep = base.clone()
+    view = base[shift: shift + n]
+    rows, starts = _spans(rng, 40, 512, n)
+    starts[1] = 0                                    # a span at the view's start
+    starts[2] = n - 100                              # one cut by its end
+    args = (torch.as_tensor(rows, device=cuda),
+            torch.as_tensor(starts, device=cuda))
+    ref = k4.addback_resident_reference(keep[shift: shift + n].clone(), *args)
+    k4.addback_resident(view, *args)
+    st, rd, wt = 6, 150, 9
+    p = torch.as_tensor(rng.standard_normal((st, rd, wt)).astype(np.float32),
+                        device=cuda)
+    tcp = torch.as_tensor(rng.integers(0, n - rd, (st, wt)).astype(np.int32),
+                          device=cuda)
+    tnr = torch.as_tensor(rng.integers(0, rd + 1, st).astype(np.int32),
+                          device=cuda)
+    twd = torch.as_tensor(rng.integers(0, wt + 1, st).astype(np.int32),
+                          device=cuda)
+    ref = k4.addback_rects_reference(ref, p, tcp, tnr, twd)
+    k4.addback_rects(view, p, tcp, tnr, twd)
+    torch.cuda.synchronize()
+    _tight(view, ref)
+    assert torch.equal(base[:shift], keep[:shift])
+    assert torch.equal(base[shift + n:], keep[shift + n:])
+
+
+def test_addback_entries_on_dead_and_empty_operands(cuda):
+    lv0 = torch.arange(100, dtype=torch.float32, device=cuda)
+    lv = lv0.clone()
+    dead = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+    k4.addback_resident(lv, torch.ones((64, 512), device=cuda), dead)
+    k4.addback_resident(lv, torch.ones((64, 7), device=cuda), dead)
+    k4.addback_resident(lv, torch.ones((0, 512), device=cuda), dead[:0])
+    k4.addback_resident(lv, torch.ones((64, 0), device=cuda), dead + 1)
+    k5.panel_addback(lv, torch.ones((4, 8, 64), device=cuda),
+                     torch.zeros((4, 8), dtype=torch.int32, device=cuda),
+                     torch.zeros(4, dtype=torch.int32, device=cuda))
+    zero = torch.zeros(4, dtype=torch.int64, device=cuda)
+    tcp = torch.zeros((4, 8), dtype=torch.int64, device=cuda)
+    p = torch.ones((4, 16, 8), device=cuda)
+    k4.addback_rects(lv, p, tcp, zero + 16, zero)          # no live column
+    k4.addback_rects(lv, p, tcp, zero, zero + 8)           # no live row
+    k5.panel_addback_rects(lv, p[:0], tcp[:0], zero[:0], zero[:0])
+    k4.addback_rects(lv, p[:, :0], tcp, zero, zero + 8)
+    torch.cuda.synchronize()
+    assert torch.equal(lv, lv0)
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("st,rd,wt,n", [
+    (1, 40, 8, 900), (37, 130, 5, 9000), (9, 300, 33, 20000),
+    (3, 129, 70, 12000), (200, 12, 3, 4000), (2, 1000, 32, 3000),
+])
+def test_addback_rects_kernel_matches_plain(cuda, st, rd, wt, n, idx):
+    """The rect entry against the shear, negation and span add-back it
+    folds, through both wrappers: tiles cut by ``tnr``, ``twd`` and the
+    wedge, column counts that are no multiple of 32, rects taller than one
+    tile, panels whose runs overlap, nonzero values outside the live
+    trapezoids (never added) and runs cut by the end of ``lvals``."""
+    rng = np.random.default_rng(st * rd + wt)
+    p = torch.as_tensor(rng.standard_normal((st, rd, wt)).astype(np.float32),
+                        device=cuda)
+    tcp = torch.as_tensor(rng.integers(0, n, (st, wt)), device=cuda).to(idx)
+    tnr = torch.as_tensor(rng.integers(0, rd + 1, st), device=cuda).to(idx)
+    twd = torch.as_tensor(rng.integers(0, wt + 1, st), device=cuda).to(idx)
+    tnr[0], twd[0] = rd, wt
+    lv0 = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                          device=cuda)
+    ref = k4.addback_rects_reference(lv0.clone(), p, tcp, tnr, twd)
+    for mod, fn in ((k4, k4.addback_rects), (k5, k5.panel_addback_rects)):
+        before = mod.LAUNCHES
+        out = fn(lv0.clone(), p, tcp, tnr, twd)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 1
+        _tight(out, ref)
+
+
+def test_addback_rects_equals_the_delta_route_and_spares_scratch(cuda):
+    """The rect entry against ``supernodal_scatter="delta"``'s masked
+    ``index_add_`` on disjoint runs: equal bit for bit where the delta route
+    writes, and the scratch slot (where that route parks masked elements)
+    and everything past the runs untouched."""
+    rng = np.random.default_rng(7)
+    st, rd, wt = 12, 90, 6
+    tnr = rng.integers(wt, rd + 1, st)
+    twd = rng.integers(1, wt + 1, st)
+    tcp = np.zeros((st, wt), np.int64)
+    pos = 0
+    for s_ in range(st):
+        for w in range(wt):
+            tcp[s_, w] = pos
+            pos += max(int(tnr[s_]) - w, 0)
+    scratch = pos
+    p = torch.as_tensor(rng.standard_normal((st, rd, wt)).astype(np.float32),
+                        device=cuda)
+    tcp, tnr, twd = (torch.as_tensor(x, device=cuda) for x in (tcp, tnr, twd))
+    lv0 = torch.as_tensor(rng.standard_normal(scratch + 50)
+                          .astype(np.float32), device=cuda)
+    lv0[scratch:] = 0.0
+    out = k4.addback_rects(lv0.clone(), p, tcp, tnr, twd)
+    rr = torch.arange(rd, device=cuda)[None, :, None]
+    ww = torch.arange(wt, device=cuda)[None, None, :]
+    mask = (ww < twd[:, None, None]) & (rr >= ww) & (rr < tnr[:, None, None])
+    where = torch.where(mask, tcp[:, None, :] + rr - ww, scratch)
+    ref = lv0.clone().index_add_(0, where.reshape(-1), (-p).reshape(-1))
+    torch.cuda.synchronize()
+    assert torch.equal(out[:scratch], ref[:scratch])
+    assert float(out[scratch:].abs().max()) == 0.0
+
+
 def test_supernodal_kernels_reject_what_they_do_not_take(cuda):
     lv = torch.zeros(100, device=cuda)
     with pytest.raises(TypeError):
@@ -498,6 +667,22 @@ def test_supernodal_kernels_reject_what_they_do_not_take(cuda):
         k5.panel_addback(lv, torch.zeros((2, 3, 8), device=cuda),
                          torch.zeros((2, 4), dtype=torch.int32, device=cuda),
                          torch.zeros(2, dtype=torch.int32, device=cuda))
+    p = torch.zeros((2, 8, 3), device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        k4.addback_rects(lv, p, torch.zeros((2, 4), **i32),
+                         torch.zeros(2, **i32), torch.zeros(2, **i32))
+    with pytest.raises(TypeError):
+        k4.addback_rects(lv, p, torch.zeros((2, 3), **i32),
+                         torch.zeros(2, **i32),
+                         torch.zeros(2, dtype=torch.int64, device=cuda))
+    with pytest.raises(TypeError):
+        k5.panel_addback_rects(lv, p.double(), torch.zeros((2, 3), **i32),
+                               torch.zeros(2, **i32), torch.zeros(2, **i32))
+    with pytest.raises(ValueError):
+        k4.addback_rects(torch.zeros(200, device=cuda)[::2], p,
+                         torch.zeros((2, 3), **i32), torch.zeros(2, **i32),
+                         torch.zeros(2, **i32))
 
 
 def _lap3(k):
@@ -563,7 +748,6 @@ def _entries(rng, entries, rows, lanes, dev, hot=None):
             torch.as_tensor(b.astype(np.float32), device=dev))
 
 
-@pytest.mark.parametrize("kernel", ["cluster", "atomic"])
 @pytest.mark.parametrize(
     "entries,rows,lanes,hot",
     [
@@ -577,21 +761,19 @@ def _entries(rng, entries, rows, lanes, dev, hot=None):
         (4096, 16, 33, 15),        # one hot row, scalar kernel, last row
         (0, 8, 16, None),          # no entries: C is cleared
         (1, 1, 4, None),
-        (5000, 4096, 4096, None),  # 32 lane slices of 128 KB a block
+        (5000, 4096, 4096, None),  # a 64 MiB tile, over the L2
     ],
 )
-def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot,
-                                        kernel):
-    """Both K6 kernels on the same cases. Tolerance: the adds come in no
-    fixed order; the probe's own bound, max abs error < 1e-4, scaled by the
-    largest magnitude where one row takes thousands of entries."""
+def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot):
+    """Tolerance: the adds come in no fixed order; the probe's own bound,
+    max abs error < 1e-4, scaled by the largest magnitude where one row
+    takes thousands of entries."""
     rng = np.random.default_rng(7)
     ii, kk, vv, b = _entries(rng, entries, rows, lanes, cuda, hot)
-    before = (k6.LAUNCHES, k6.LAUNCHES_BY_KERNEL[kernel])
-    out = k6.entry_fma(ii, kk, vv, b, rows, kernel=kernel)
+    before = k6.LAUNCHES
+    out = k6.entry_fma(ii, kk, vv, b, rows)
     torch.cuda.synchronize()
-    assert (k6.LAUNCHES, k6.LAUNCHES_BY_KERNEL[kernel]) == (
-        before[0] + 1, before[1] + 1)
+    assert k6.LAUNCHES == before + 1
     ref = k6.entry_fma_reference(ii, kk, vv, b, rows)
     assert out.shape == ref.shape == (rows, lanes)
     ref64 = torch.zeros((rows, lanes), dtype=torch.float64, device=cuda)
@@ -599,30 +781,6 @@ def test_entry_fma_kernel_matches_plain(cuda, entries, rows, lanes, hot,
     scale = max(float(ref64.abs().max()), 1.0) if entries else 1.0
     assert float((out - ref).abs().max()) < 1e-4 * scale
     assert float((out.double() - ref64).abs().max()) < 1e-4 * scale
-
-
-def test_entry_fma_dispatch_is_by_tile_size(cuda):
-    """With no kernel named every tile takes the atomic kernel (the cluster
-    kernel measured slower at every shape); asking for the cluster kernel
-    runs it on a tile that fits a cluster's shared memory and raises on one
-    that does not."""
-    rng = np.random.default_rng(10)
-    for rows, lanes, fits in ((4096, 128, True), (4096, 512, True),
-                              (200_000, 512, False)):
-        assert (k6.cluster_geometry(rows, lanes) is not None) == fits
-        assert k6.DEFAULT_KERNEL == "atomic"
-        ii, kk, vv, b = _entries(rng, 4000, rows, lanes, cuda)
-        before = dict(k6.LAUNCHES_BY_KERNEL)
-        out = k6.entry_fma(ii, kk, vv, b, rows)
-        torch.cuda.synchronize()
-        assert k6.LAUNCHES_BY_KERNEL["atomic"] == before["atomic"] + 1
-        assert k6.LAUNCHES_BY_KERNEL["cluster"] == before["cluster"]
-        _close(out, k6.entry_fma_reference(ii, kk, vv, b, rows))
-    with pytest.raises(ValueError):
-        k6.entry_fma(ii, kk, vv, b, rows, kernel="cluster")
-    with pytest.raises(ValueError):
-        k6.entry_fma(ii, kk, vv, b, rows, kernel="shared")
-    assert k6.LAUNCHES_BY_KERNEL["cluster"] == before["cluster"]
 
 
 def test_entry_fma_unaligned_b_takes_the_scalar_kernel(cuda):
@@ -661,10 +819,7 @@ def test_entry_fma_probe_runs_on_the_card(cuda):
     res = probe.measure(8192, 4096, 128, cuda, iters=5)
     assert res["value"] > 0 and res["stream_kernel_ns"] > 0
     assert res["max_abs_err"] < 1e-4 and res["stream_max_abs_err"] < 1e-4
-    assert res["kernel"] == "atomic" and set(res["by_kernel"]) == {
-        "cluster", "atomic"}
-    assert all(t["kernel_ms"] > 0 and t["max_abs_err"] < 1e-4
-               for t in res["by_kernel"].values())
+    assert res["kernel_ms"] > 0 and res["call_ms"] > 0
 
 
 def test_stream_slice_probe_runs_on_the_card(cuda):
@@ -673,10 +828,10 @@ def test_stream_slice_probe_runs_on_the_card(cuda):
     assert sp.l2_gather_gbps(1 << 20, cuda, iters=64) > 0
     plan, b = sp.make_operand(20_000, 16, 64, cuda)
     reports = sp.sweep(plan, b, iters=2)
-    assert [r["kernel"] for r in reports].count("sliced") == 8
+    assert [r["kernel"] for r in reports] == ["tile", "sliced"]
     assert all(r["ms"] > 0 for r in reports)
     assert all(r["max_abs_err_vs_tile"] < 1e-4 and r["bitwise_repeatable"]
                for r in reports if r["kernel"] == "sliced")
     long = sp.long_row_report(20_000, 16, 64, 700, cuda, iters=2)
     assert long["longest_row"] == 700 and long["max_abs_err_vs_tile"] < 1e-4
-    assert long["tile"]["ms"] > 0 and long["sliced_w32"]["ms"] > 0
+    assert long["tile"]["ms"] > 0 and long["sliced"]["ms"] > 0

@@ -7,9 +7,7 @@ runs it: in interpret mode on the CPU. Inputs are made with numpy from a
 seed, as the probe makes them. Tolerance: max abs error < 1e-5 (the serial
 loop and ``index_add_`` add in different orders; the probe's own bound for
 the card is 1e-4); where one row takes hundreds of entries and its sums
-reach tens, 1e-5 of the largest magnitude. The cluster kernel's cut of a
-tile and the choice between the two kernels are pure functions of
-(rows, lanes) and are tested here; the kernels run on the card
+reach tens, 1e-5 of the largest magnitude. The kernel runs on the card
 (``test_torch_cuda_kernels.py``).
 """
 
@@ -134,54 +132,3 @@ def test_probe_timing_refuses_to_run_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit):
         probe.main([])
-
-
-# ---- the cluster kernel's geometry and the dispatch ----------------------- #
-@pytest.mark.parametrize("rows,lanes,cluster_size,want", [
-    # the smoke's three shapes (the hot-row case shares the default tile)
-    (4096, 128, 16, (256, 16, 8)),
-    (4096, 512, 16, (256, 64, 8)),
-    (1_000_000, 512, 16, None),        # K2's own entries: a 2 GB tile
-    (4096, 128, 8, (512, 8, 16)),
-    (4096, 512, 8, (512, 32, 16)),
-    (1_000_000, 512, 8, None),
-    (20, 48, 16, (2, 6, 8)),           # ragged rows and lanes
-    (1, 4, 16, (1, 1, 4)),
-    (4096, 4096, 16, (256, 128, 32)),  # the lane slice halved to fit
-    (4096, 4096, 8, None),             # ... and too many slices at size 8
-    (65536, 512, 16, None),
-])
-def test_cluster_geometry_is_a_function_of_the_tile(rows, lanes,
-                                                    cluster_size, want):
-    geo = k6.cluster_geometry(rows, lanes, cluster_size)
-    if want is None:
-        assert geo is None
-        return
-    assert (geo.rows_per_block, geo.lane_slice, geo.n_clusters) == want
-    assert geo.cluster_size == cluster_size
-    # the cut covers the tile and a block's share fits its shared memory
-    assert geo.cluster_size * geo.rows_per_block >= rows
-    assert geo.n_clusters * geo.lane_slice >= lanes
-    assert (geo.n_clusters - 1) * geo.lane_slice < lanes
-    assert geo.smem_bytes == geo.rows_per_block * geo.lane_slice * 4
-    assert geo.smem_bytes <= k6.SMEM_MAX_BYTES
-    assert geo.n_clusters <= k6.MAX_CLUSTERS
-
-
-@pytest.mark.parametrize("rows,lanes", [(4096, 128), (4096, 512),
-                                        (1_000_000, 512), (32, 128)])
-def test_every_tile_takes_the_atomic_kernel_by_default(rows, lanes):
-    """The cluster kernel measured slower at every shape, so the dispatch
-    names the atomic kernel whatever the tile's size."""
-    assert k6.DEFAULT_KERNEL == "atomic"
-    assert k6.cluster_geometry(0, lanes) is None
-    assert k6.cluster_geometry(rows, 0) is None
-
-
-def test_wrapper_on_cpu_ignores_the_kernel_argument():
-    ii, kk, vv, b = (torch.from_numpy(x) for x in _inputs(3, 100, 20, 16))
-    before = (k6.LAUNCHES, dict(k6.LAUNCHES_BY_KERNEL))
-    for kernel in (None, "atomic", "cluster"):
-        out = k6.entry_fma(ii, kk, vv, b, 20, kernel=kernel)
-        assert torch.equal(out, k6.entry_fma_reference(ii, kk, vv, b, 20))
-    assert (k6.LAUNCHES, k6.LAUNCHES_BY_KERNEL) == before

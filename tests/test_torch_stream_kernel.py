@@ -225,21 +225,20 @@ def test_cells_out_of_row_order_have_no_row_pointers(tile_m, tile_k):
     assert longest == _walk_row_pointers(plan.ii.numpy(), plan.vv.numpy(),
                                          tile_m)[1]
     with pytest.raises(ValueError):
-        pk.spmm_stream_sliced_model(plan, torch.zeros((cols, 8)), 8)
+        pk.spmm_stream_sliced_model(plan, torch.zeros((cols, 8)))
 
 
-@pytest.mark.parametrize("w", [4, 8, 16, 32])
-@pytest.mark.parametrize("n_rhs", [24, 20, 64])
-def test_sliced_model_matches_plain_and_jax_kernel(w, n_rhs):
-    """Tolerance rtol 1e-5 (atol 1e-5 of the largest magnitude): float32
-    sums of the same products, taken row by row instead of by
-    ``index_add_``."""
+@pytest.mark.parametrize("n_rhs", [24, 20, 64, 32, 100])
+def test_sliced_model_matches_plain_and_jax_kernel(n_rhs):
+    """Widths under, at and over one slice of 32 columns, whole and ragged.
+    Tolerance rtol 1e-5 (atol 1e-5 of the largest magnitude): float32 sums
+    of the same products, taken row by row instead of by ``index_add_``."""
     ri, ci, v, rows, cols = _row_ordered_entries()
     b = np.random.default_rng(8).standard_normal((cols, n_rhs)).astype(
         np.float32)
     plan = pk.build_stream_plan(ri, ci, v, rows, cols, tile_m=16,
                                 tile_k=cols)
-    out = pk.spmm_stream_sliced_model(plan, torch.from_numpy(b), w)
+    out = pk.spmm_stream_sliced_model(plan, torch.from_numpy(b))
     assert tuple(out.shape) == (rows, n_rhs) and out.dtype == torch.float32
     ref = pk.spmm_stream_reference(plan, torch.from_numpy(b)).numpy()
     atol = 1e-5 * float(np.abs(ref).max())
@@ -259,22 +258,9 @@ def test_sliced_kernel_refuses_several_k_tiles(tile_m, tile_k):
                                 tile_k=tile_k)
     assert plan.n_kt > 1 and pk.cell_row_pointers(plan)[0] is not None
     with pytest.raises(ValueError, match="one k tile"):
-        pk.spmm_stream_sliced_model(plan, torch.zeros((cols, 12)), 8)
+        pk.spmm_stream_sliced_model(plan, torch.zeros((cols, 12)))
     assert pk.pick_stream_kernel(1 << 20, 1 << 20, 512, plan.n_kt, 1) == (
         "tile", 0)
-
-
-@pytest.mark.parametrize("k,n,w", [(10, 8, 4), (7, 20, 8), (5, 64, 32),
-                                   (3, 36, 16)])
-def test_pack_slices_is_slice_major_and_zero_padded(k, n, w):
-    b = torch.arange(k * n, dtype=torch.float32).view(k, n)
-    packed = pk.pack_slices(b, w)
-    n_slices = -(-n // w)
-    assert tuple(packed.shape) == (n_slices, k, w) and packed.is_contiguous()
-    for s in range(n_slices):
-        width = min(w, n - s * w)
-        assert torch.equal(packed[s, :, :width], b[:, s * w: s * w + width])
-        assert not packed[s, :, width:].any()
 
 
 @pytest.mark.parametrize("rows,k,n,n_kt,longest,want", [
@@ -298,6 +284,7 @@ def test_pick_stream_kernel_is_a_function_of_the_shape(rows, k, n, n_kt,
     assert pk.slice_width(k, n, n_kt) == (32 if fits else 0)
     assert (want[0] == "sliced") == (fits
                                      and longest * pk.LONG_ROW_ROWS <= rows)
+    assert pk.SLICE_WIDTH == 32
     assert pk.L2_SLICE_BUDGET_BYTES == 32 << 20
     assert pk.LONG_ROW_ROWS == 192
 
@@ -309,8 +296,7 @@ def test_kernel_launchers_refuse_cpu_tensors():
     b = torch.zeros((cols, 8))
     before = (pk.LAUNCHES, dict(pk.LAUNCHES_BY_KERNEL))
     for launch in (lambda: pk.spmm_stream_tile(plan, b),
-                   lambda: pk.spmm_stream_sliced(plan, b, 8),
-                   lambda: pk.pack_slices_cuda(b, 8)):
+                   lambda: pk.spmm_stream_sliced(plan, b)):
         with pytest.raises(ValueError):
             launch()
     assert (pk.LAUNCHES, pk.LAUNCHES_BY_KERNEL) == before
