@@ -6,7 +6,9 @@ and public names, so each counterpart is found at the same relative path.
 It imports ``torch`` and never ``jax``. Hand-written Hopper kernels live in
 ``csrc/`` and are built at first use by ``runtime/cuda_kernels.py``.
 
-Ported so far (every module of the JAX package except ``parallel``):
+Ported so far (every module of the JAX package except ``parallel``'s
+slice C: ``cholesky``, ``triangular``, ``supernodal``, ``bcr``,
+``multihost``):
 * ``utils``   — shapes, the ``MatErr`` error types, config, logging
 * ``ops``     — COO/CSR/Dense storage with the full ``CSR`` surface,
   transpose, ELL, interop, orderings, SpMM/SpMV and the ``spmm_auto``
@@ -24,6 +26,10 @@ Ported so far (every module of the JAX package except ``parallel``):
 * ``runtime`` — host symbolic analysis (native C++ with numpy fallbacks),
   CUDA-event timing, the kernel build, validation, Matrix Market I/O,
   ``.npz`` checkpoints and metrics
+* ``parallel`` — the mesh and its communicators (logical ranks in one
+  process, or one rank per ``torch.distributed`` process), the row-sharded
+  CSR, the SpMM strategies, CG, block-Jacobi PCG, Lanczos, Chebyshev,
+  TSQR, sharded SpGEMM, ``DistributedOperator`` and the dry run
 """
 
 from .models import (

@@ -15,7 +15,11 @@ identical plan. ``banded_factor_from_numpy``, ``bcr_factor_from_numpy``,
 for solver state (a JAX ``BandedFactor``, ``BCRFactor``,
 ``CholeskySchedule`` and the IC(0) factor of a JAX ``PCGSetup``), so a test
 can feed the port's solve the JAX factor and tell a factor fault from a
-solve fault. Nothing here imports JAX: the caller hands over numpy.
+solve fault. ``sharded_csr_from_numpy`` and ``block_jacobi_from_numpy``
+carry the distributed layer's state: a JAX ``ShardedCSR``'s stacked arrays
+and the stacked block-Jacobi factors of ``parallel.pcg.build_block_jacobi``,
+each placed on a port mesh (the shards of the ranks the process runs).
+Nothing here imports JAX: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -150,6 +154,49 @@ def pcg_setup_from_numpy(a: CSR, l_indptr, l_indices, l_values):
 
     return PCGSetup.from_factor(a, csr_from_numpy(
         l_indptr, l_indices, l_values, (a.rows, a.rows), device=a.device))
+
+
+def sharded_csr_from_numpy(indptr, indices, values, rows: int, cols: int,
+                           rows_per_shard: int, mesh):
+    """The port's ``ShardedCSR`` from a JAX one's stacked ``(S, rps + 1)``,
+    ``(S, nnz_max)``, ``(S, nnz_max)`` arrays, taken as they are, placed
+    on ``mesh``. A shard's true entry count is its pointer after the last
+    live row; where every row is live that pointer is ``nnz_max``, and the
+    padding (value 0, column 0, after the last row's sorted columns) is
+    counted off the end."""
+    from ..parallel.sharded import ShardedCSR, put_sharded
+
+    host = (np.ascontiguousarray(indptr, dtype=np.int32),
+            np.ascontiguousarray(indices, dtype=np.int32),
+            np.ascontiguousarray(values))
+    num, rps = host[0].shape[0], int(rows_per_shard)
+    nnz = []
+    for s in range(num):
+        live = min(max(int(rows) - s * rps, 0), rps)
+        end = int(host[0][s, live])
+        if live == rps:
+            start = int(host[0][s, live - 1])
+            pad = (host[1][s, start:end] == 0) & (host[2][s, start:end] == 0)
+            while end > start and pad[end - start - 1]:
+                end -= 1
+        nnz.append(end)
+    full = ShardedCSR(indptr=to_tensor(host[0], "cpu"),
+                      indices=to_tensor(host[1], "cpu"),
+                      values=to_tensor(host[2], "cpu"), rows=int(rows),
+                      cols=int(cols), rows_per_shard=rps, num_shards=num,
+                      shards=tuple(range(num)), nnz=tuple(nnz), _host=host)
+    return put_sharded(full, mesh)
+
+
+def block_jacobi_from_numpy(lfac, mesh) -> torch.Tensor:
+    """The port's stacked block-Jacobi factors (the ``lfac`` of
+    ``parallel.pcg.pcg_solve_sharded``) from a JAX ``build_block_jacobi``
+    result ``(S, rps, rps)``: the factors of the ranks ``mesh`` runs along
+    ``"rows"``, on its device."""
+    from ..parallel.mesh import ROWS
+
+    lfac = np.asarray(lfac, dtype=np.float32)[mesh.axis(ROWS).local]
+    return to_tensor(lfac, mesh.device)
 
 
 def to_scipy(a: CSR):

@@ -1,0 +1,124 @@
+"""Communicators: the collectives of one mesh axis, over the ranks this
+process runs.
+
+No counterpart in the JAX package, which writes each algorithm once as a
+per-device body under ``jax.shard_map`` with XLA collectives in it
+(``all_gather``, ``psum``, ``ppermute``). ``torch.distributed`` runs one
+process per rank instead, and one process cannot simulate a mesh by
+calling a per-rank function rank after rank: the first rank would block in
+its first collective. So every algorithm of ``parallel/`` is written in
+bulk-synchronous form: a process runs the members ``local`` of an axis,
+each step maps over them, and each collective takes one tensor per local
+member and returns one per local member.
+
+Two communicators implement the same four methods:
+
+* :class:`LocalComm` runs every member of the axis in this process (the
+  logical shards of one device, or of the CPU). A gathered or reduced
+  result is ONE tensor handed to every member, never a copy per member.
+* :class:`TorchDistComm` runs one member per process over a
+  ``torch.distributed`` process group (NCCL on the card, gloo on the CPU).
+
+Member ``i`` of an axis of ``size`` members:
+
+* ``all_gather(xs)``: the members' tensors concatenated along dim 0 in
+  member order (JAX ``all_gather(x, axis, tiled=True)``); with
+  ``tiled=False`` stacked on a new dim 0.
+* ``all_reduce(xs)``: the sum over members, added in member order,
+  ``((x_0 + x_1) + x_2) + ...`` (JAX ``psum``). Both communicators add in
+  that order, so their results agree bit for bit; ``TorchDistComm`` gathers
+  the summands and adds them locally rather than trusting the backend's
+  reduction order (the operands are scalars and k-vectors).
+* ``ring_shift(xs)``: member ``i`` receives member ``(i + 1) % size``'s
+  tensor and sends its own to ``(i - 1) % size`` (JAX ``ppermute`` with
+  ``perm = [(i, (i - 1) % size)]``). At size 1 it returns the input and
+  posts nothing.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+
+def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+class LocalComm:
+    """Every member of the axis in this process."""
+
+    def __init__(self, size: int):
+        if size < 1:
+            raise ValueError(f"a mesh axis needs at least 1 member, got "
+                             f"{size}")
+        self.size = int(size)
+        self.local: List[int] = list(range(self.size))
+
+    def all_gather(self, xs: Sequence[torch.Tensor], tiled: bool = True
+                   ) -> List[torch.Tensor]:
+        out = torch.cat(list(xs)) if tiled else torch.stack(list(xs))
+        return [out] * self.size
+
+    def all_reduce(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [_ordered_sum(xs)] * self.size
+
+    def ring_shift(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        xs = list(xs)
+        return xs[1:] + xs[:1]
+
+
+class TorchDistComm:
+    """One member per process: this process is member ``index`` of the
+    axis whose members are the global ranks ``ranks`` (in axis order),
+    joined by ``group`` (``None``: the default group, when ``ranks`` is the
+    whole world)."""
+
+    def __init__(self, ranks: Sequence[int], index: int, group=None):
+        self.ranks = [int(r) for r in ranks]
+        self.size = len(self.ranks)
+        self.index = int(index)
+        self.group = group
+        self.local: List[int] = [self.index]
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        out = torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(out, x.contiguous().unsqueeze(0), group=self.group)
+        return out
+
+    def all_gather(self, xs: Sequence[torch.Tensor], tiled: bool = True
+                   ) -> List[torch.Tensor]:
+        (x,) = xs
+        out = self._gather(x)
+        return [out.reshape((-1,) + tuple(x.shape[1:])) if tiled else out]
+
+    def all_reduce(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        (x,) = xs
+        return [_ordered_sum(self._gather(x).unbind(0))]
+
+    def ring_shift(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        (x,) = xs
+        if self.size == 1:
+            return [x]
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        buf = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x,
+                          self.ranks[(self.index - 1) % self.size],
+                          self.group),
+               dist.P2POp(dist.irecv, buf,
+                          self.ranks[(self.index + 1) % self.size],
+                          self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return [buf]

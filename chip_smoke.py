@@ -6,7 +6,9 @@ supernodal Cholesky → level-scheduled triangular solves), the rest of
 ``DirectSolver`` tier (supernodal, banded scan, BCR, scatter-list), IC(0)-PCG,
 Lanczos, Chebyshev, dense Cholesky and TSQR; and the sparse × sparse algebra
 (``a + b``, ``a - b``, ``a * s``, ``spgemm``, ``matmul_sparse``), the file
-round trips and the per-entry FMA probe (K6).
+round trips and the per-entry FMA probe (K6); and the distributed layer
+(``parallel/``) on logical shards of the one card and over NCCL at world
+size 1.
 
 Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
@@ -26,7 +28,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    on operands built straight through ``make_bsr`` (each > 100 MB of
    blocks, B over the 50 MB L2, N = 512), with TFLOP/s over live and over
    all blocks, its launch configuration (registers, shared memory, spill
-   bytes, blocks per SM) and, at each shape, the first rows of its
+   bytes, blocks per SM), its library yardstick ``torch.sparse.mm`` of a
+   ``sparse_csr_tensor`` holding the live blocks (built untimed) and, at
+   each shape, the first rows of its
    HIGHEST output against a float64 product (``max|err| <= 1e-5 ·
    max|ref|``). K2: BOTH kernels of ``spmm_stream`` (tile and sliced)
    against ``spmm_stream_reference`` at the main shape, timed in turns
@@ -74,11 +78,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    only); each beside the one PyTorch call for the same function, an
    ``index_add_`` with its positions built (the span entry's over the live
    spans, the rect entry's the masked one of
-   ``supernodal_scatter="delta"``). The ``kernels`` rows of K4 and K5 carry
-   the rect entry's numbers, the kernel their launches on the main path
-   are of; the span entry's ride along under ``span_entry``. Each bound
-   counts what the function needs: tables, nonzero elements, touched
-   factor values, not a dead slot's row.
+   ``supernodal_scatter="delta"``); K3 beside one gather of overlapping
+   windows, ``lvals.unfold(0, l_pad, 1)[starts]``. The ``kernels`` rows of
+   K4 and K5 carry the rect entry's numbers, the kernel their launches on
+   the main path are of; the span entry's ride along under
+   ``span_entry``. Each bound counts what the function needs: tables,
+   nonzero elements, touched factor values, not a dead slot's row.
 8. Per formulation: at k = 14 (n = 2744), the factor on the card against
    the factor on the CPU (plain versions) under ``supernodal_scatter`` =
    auto, vmem and pallas with ``supernodal_gather="kernel"``, with TF32
@@ -148,6 +153,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     entry beside K2's on the same entries, and beside K2's at its own shape
     from phase 3. The launch counter is set to 0 right before the probe and
     read right after.
+
+19. ``parallel/``, run after phase 5 while the 1M-row operand is resident
+    (the counts set to 0 right before, read right after; K2 must launch):
+    (a) ``spmm_sharded``, ``spmm_allgather``, ``spmm_ring`` at 4 logical
+    shards (``LocalComm``) and ``spmm_ring_2d`` at 2 × 2 on phase 4's
+    stream operand, each held to phase 4's ``mul_dense`` result under
+    ``compare``'s limits; K2 must launch once per rank and ring step in a
+    call and K1 never (every local product on the streaming rung); host
+    shard time, first call (host plans), CUDA-event ms a call (median of
+    3) beside ``mul_dense``'s, peak memory; (b) ``DistributedOperator``
+    on the 33³ Laplacian at 8 logical shards: ``matvec``/``matmul`` (8 rhs) against
+    ``SparseOperator``; ``solve_cg`` (110 iterations), ``solve_pcg`` (40)
+    to a float64 relative residual <= 1e-5, ``solve_chebyshev`` (150, bounds
+    from ``eigen_values(32)``) <= 1e-4; the sharded Ritz extremes (k = 32,
+    one seeded v0) within 1e-4·|λ| of the single-device Lanczos;
+    ``matmul_sparse(A)`` against ``SparseOperator``'s, pattern entry for
+    entry, values within 1e-5 of max|ref|; (c) ``tsqr_sharded`` at 2²⁰ × 64
+    on 4 shards (phase 13's limits), timed beside ``tsqr`` and
+    ``torch.linalg.qr``; (d) ``spgemm_sharded`` on phase 16's operands at 4
+    shards against ``spgemm_planned``; (e) ``spmm_ring`` on (a)'s operand
+    and ``solve_cg`` on (b)'s through ``TorchDistComm`` over NCCL at world
+    size 1, each bitwise equal to ``LocalComm`` at one shard; (f)
+    ``dryrun_multichip(8)`` on the card. Every result must lie on the card;
+    NCCL that cannot start fails the smoke.
 
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
@@ -308,6 +337,28 @@ def k1_vs_plain(bsr, b, shape_name: str, iters: int) -> tuple:
         f"{per_block * bsr.nblocks / ms / 1e9:.2f} over all; plain "
         f"{per_block * bsr.nblocks / plain_ms / 1e9:.2f} over all")
     return err, ms, plain_ms
+
+
+def live_blocks_csr(bsr) -> torch.Tensor:
+    """The live blocks of ``bsr`` as one ``torch.sparse_csr_tensor`` of
+    the padded shape on the card (every element of a live block stored),
+    for ``torch.sparse.mm``: the BSR layout PyTorch refuses for non-square
+    blocks, in the layout it takes."""
+    live = bsr.live_idx.long()
+    bm, bk = bsr.bm, bsr.bk
+    dev = bsr.blocks.device
+    rows = (bsr.block_rows.long()[live][:, None, None] * bm
+            + torch.arange(bm, device=dev)[None, :, None]).expand(-1, -1, bk)
+    cols = (bsr.block_cols.long()[live][:, None, None] * bk
+            + torch.arange(bk, device=dev)[None, None, :]).expand(-1, bm, -1)
+    rows, cols = rows.reshape(-1), cols.reshape(-1)
+    order = torch.argsort(rows * bsr.padded_cols + cols)
+    crow = torch.zeros(bsr.padded_rows + 1, dtype=torch.long, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=bsr.padded_rows),
+                            0)
+    return torch.sparse_csr_tensor(
+        crow, cols[order], bsr.blocks[live].reshape(-1)[order],
+        size=(bsr.padded_rows, bsr.padded_cols))
 
 
 def plain_spmm(a, b) -> torch.Tensor:
@@ -762,6 +813,19 @@ def solver_kernels_vs_plain(solver, gen) -> list:
         f"{four[0]:.4f} / {four[3]:.4f} ms; {moved / ms / 1e6:.1f} GB/s by "
         f"2·runs·l_pad·4 bytes")
     n_live = int((stf >= 0).sum())
+
+    def runs_library():
+        # lvals with l_pad zeros after it, dead and past-the-end starts
+        # mapped into that tail (built outside the timed call): then one
+        # gather of overlapping windows computes K3's function
+        tail = torch.cat([lvals, lvals.new_zeros(lp)])
+        starts = torch.where(stf >= 0, stf.long(),
+                             lvals.numel()).clamp(max=lvals.numel())
+        windows = tail.unfold(0, lp, 1)
+        return lambda: windows[starts]
+    lib_ms = library_time("lvals.unfold(0, l_pad, 1)[starts] (one gather, "
+                          "positions implicit; the zero tail untimed)",
+                          runs_library, got, 20)
     # stf read, the live runs read (at most all of lvals), the output
     # written; no arithmetic
     out.append({"name": "runs_read",
@@ -771,7 +835,7 @@ def solver_kernels_vs_plain(solver, gen) -> list:
                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                 **bound(4 * (stf.numel() + min(n_live * lp, lvals.numel())
                              + stf.numel() * lp), 0.0),
-                "library_ms": None})
+                "library_ms": lib_ms})
 
     # K4 and K5: the add-back operands of one group each, level 0.
     def targets(gi):
@@ -1681,6 +1745,315 @@ def k6_phase(dev, k2_main: float) -> dict:
             "launches": launches["entry_fma"], **timing}
 
 
+# ---- 19. the distributed layer (parallel/) on logical shards and NCCL -----
+PAR_SHARDS = 4            # (a), (c), (d): logical ranks on the one card
+PAR_SERVING_SHARDS = 8    # (b): rps 4,493 at n = 35,937
+# Fixed iteration counts of (b) (the sharded solvers run a fixed count, as
+# the JAX package's): CG reaches ≈ 1e-5 near 90 steps and PCG near 27 on
+# the 33³ Laplacian at 8 shards; Chebyshev with Lanczos(32) bounds 7.6e-5
+# at 100 (the port's CPU rehearsal).
+PAR_CG_ITERS = 110
+PAR_PCG_ITERS = 40
+PAR_CHEB_ITERS = 150
+PAR_RES_MAX = 1e-5
+PAR_CHEB_RES_MAX = 1e-4
+PAR_RITZ_REL = 1e-4
+PAR_VALUES_RTOL = 1e-5
+
+
+def on_card(name: str, *tensors) -> None:
+    for t in tensors:
+        if not t.is_cuda:
+            raise AssertionError(f"{name}: a result lies on {t.device}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return int(sock.getsockname()[1])
+
+
+def parallel_spmm(a_st, b_st, ref) -> dict:
+    """19(a): the four SpMM strategies on the 1M × 1M × 32 × 512 operand at
+    4 logical shards (2 × 2 for the 2-D ring), each held to phase 4's
+    ``mul_dense`` result; host shard and plan times, CUDA-event ms, K1/K2
+    launches per call. Returns the ms by strategy."""
+    from basic_sparse_matrix_tpu_torch import mul_dense
+    from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
+    from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
+    from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
+    from basic_sparse_matrix_tpu_torch.parallel import spmm as ps
+    from basic_sparse_matrix_tpu_torch.parallel import spmm2d
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import make_mesh, row_mesh
+    from basic_sparse_matrix_tpu_torch.runtime.timing import cuda_time_ms
+
+    s = PAR_SHARDS
+    mesh = row_mesh(s, comm="local")
+    mesh2 = make_mesh((2, 2), ("rows", "cols"), comm="local")
+    (sa, sa2), t_shard = timed(lambda: tuple(
+        sh.put_sharded(sh.shard_csr(a_st, r), m)
+        for r, m in ((s, mesh), (2, mesh2))))
+    log(f"  shard_csr + put_sharded at {s} and 2 row shards: {t_shard:.2f} s "
+        f"(host); rps {sa.rows_per_shard}, nnz_max "
+        f"{int(sa.indices.shape[1])}; on {sa.device}")
+    # K2 once per rank (and ring step) in a call: every local product took
+    # spmm_auto's streaming rung
+    runs = {"spmm_sharded": (lambda: ps.spmm_sharded(sa, b_st, mesh), s),
+            "spmm_allgather": (lambda: ps.spmm_allgather(sa, b_st, mesh), s),
+            "spmm_ring": (lambda: ps.spmm_ring(sa, b_st, mesh), s * s),
+            "spmm_ring_2d": (lambda: spmm2d.spmm_ring_2d(sa2, b_st, mesh2),
+                             2 * 2 * 2)}
+    ms = {}
+    for name, (run, k2_want) in runs.items():
+        before = (k1.LAUNCHES, k2.LAUNCHES)
+        out, first = timed(run)
+        got = (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1])
+        on_card(name, out)
+        compare(f"{name} at {s} logical shards vs mul_dense",
+                sh.unshard_rows(out, a_st.rows), ref)
+        del out
+        if got != (0, k2_want):
+            raise AssertionError(f"{name}: (K1, K2) launched {got} times in "
+                                 f"a call, expected (0, {k2_want}): one K2 "
+                                 f"per rank and ring step")
+        ms[name] = cuda_time_ms(run, warmup=0, iters=3)
+        log(f"  {name}: first call (host plans included) {first:.2f} s; "
+            f"{ms[name]:.3f} ms a call (CUDA events, median of 3); "
+            f"launches a call K1 {got[0]}, K2 {got[1]}")
+    ms["mul_dense"] = cuda_time_ms(lambda: mul_dense(a_st, b_st), warmup=0,
+                                   iters=3)
+    log(f"  single-device mul_dense on the same operand: "
+        f"{ms['mul_dense']:.3f} ms a call (CUDA events, median of 3)")
+    return ms
+
+
+def nccl_ring(a_st, b_st) -> None:
+    """19(e), first half: ``spmm_ring`` through ``TorchDistComm`` over NCCL
+    at world size 1 against ``LocalComm`` at one shard, bit for bit (the
+    process group stays up for the CG half in :func:`parallel_serving`)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
+    from basic_sparse_matrix_tpu_torch.parallel import spmm as ps
+    from basic_sparse_matrix_tpu_torch.parallel.comm import TorchDistComm
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+
+    port = free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    log(f"  NCCL process group up: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, tcp://127.0.0.1:{port}")
+    mesh_d, mesh_l = row_mesh(comm="dist"), row_mesh(1, comm="local")
+    if not isinstance(mesh_d.axis("rows"), TorchDistComm):
+        raise AssertionError("row_mesh(comm='dist') is not on TorchDistComm")
+    # one shard object serves both meshes: they hold shard 0 on the card
+    sa = sh.put_sharded(sh.shard_csr(a_st, 1), mesh_l)
+    y_l, first = timed(lambda: ps.spmm_ring(sa, b_st, mesh_l))
+    y_d, again = timed(lambda: ps.spmm_ring(sa, b_st, mesh_d))
+    on_card("spmm_ring over NCCL", y_d)
+    same = bool(torch.equal(y_d, y_l))
+    log(f"  spmm_ring at world size 1: LocalComm {first:.2f} s (plans "
+        f"included), TorchDistComm/NCCL {again * 1e3:.1f} ms; bitwise "
+        f"equal: {same}")
+    if not same:
+        raise AssertionError("spmm_ring over NCCL differs from LocalComm")
+
+
+def parallel_serving(dev) -> None:
+    """19(b)-(f): DistributedOperator on the 33³ Laplacian at 8 logical
+    shards, TSQR at 2²⁰ × 64 and sharded SpGEMM on phase 16's operands at
+    4, CG over NCCL against LocalComm, and the dry run at 8."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from basic_sparse_matrix_tpu_torch import CSR, SparseOperator
+    from basic_sparse_matrix_tpu_torch.models import tsqr
+    from basic_sparse_matrix_tpu_torch.models.lanczos import (
+        LanczosSetup, _ritz_values)
+    from basic_sparse_matrix_tpu_torch.parallel import lanczos as pl
+    from basic_sparse_matrix_tpu_torch.parallel import spgemm_sparse as psg
+    from basic_sparse_matrix_tpu_torch.parallel import tsqr as pts
+    from basic_sparse_matrix_tpu_torch.parallel.dryrun import dryrun_multichip
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+    from basic_sparse_matrix_tpu_torch.parallel.operator import (
+        DistributedOperator)
+    from basic_sparse_matrix_tpu_torch.runtime.timing import cuda_time_ms
+
+    spg = importlib.import_module("basic_sparse_matrix_tpu_torch.ops.spgemm")
+
+    # (b) serving on the 33³ Laplacian
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)      # the default device
+    on_card("the 33³ Laplacian", a.values)
+    op, t_op = timed(lambda: DistributedOperator(
+        a, row_mesh(PAR_SERVING_SHARDS, comm="local")))
+    sop = SparseOperator(a)
+    log(f"(b) DistributedOperator, 33³ Laplacian at {PAR_SERVING_SHARDS} "
+        f"logical shards: sharded in {t_op:.3f} s, rps "
+        f"{op.sa.rows_per_shard}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    x = torch.randn(n, generator=gen, device=dev)
+    b8 = torch.randn((n, 8), generator=gen, device=dev)
+    for name, got, want in (("matvec", op.matvec(x), sop.matvec(x)),
+                            ("matmul (8 rhs)", op.matmul(b8),
+                             sop.matmul(b8))):
+        on_card(name, got)
+        compare(f"DistributedOperator.{name} vs SparseOperator", got, want)
+    log(f"  matvec {cuda_time_ms(lambda: op.matvec(x), warmup=1, iters=5):.3f}"
+        f" ms, matmul (8 rhs) "
+        f"{cuda_time_ms(lambda: op.matmul(b8), warmup=1, iters=5):.3f} ms "
+        f"(CUDA events, median of 5); SparseOperator matmul "
+        f"{cuda_time_ms(lambda: sop.matmul(b8), warmup=1, iters=5):.3f} ms")
+    rhs = torch.randn(n, generator=gen, device=dev)
+
+    def rel_res(xs):
+        return float(torch.linalg.norm(rhs.double() - matvec64(a, xs))
+                     / torch.linalg.norm(rhs.double()))
+    _, t_lfac = timed(op._ensure_block_jacobi)
+    log(f"  block-Jacobi factors: {tuple(op._lfac.shape)}, "
+        f"{op._lfac.numel() * 4 / 2**20:.0f} MiB, built in {t_lfac:.3f} s")
+    for name, iters in (("solve_cg", PAR_CG_ITERS),
+                        ("solve_pcg", PAR_PCG_ITERS)):
+        xs, t = timed(lambda: getattr(op, name)(rhs, iters=iters))
+        on_card(name, xs)
+        res = rel_res(xs)
+        log(f"  {name}: {iters} iterations in {t * 1e3:.1f} ms "
+            f"({t * 1e3 / iters:.2f} ms per iteration), float64 relative "
+            f"residual {res:.3e} (limit {PAR_RES_MAX:g})")
+        if not res <= PAR_RES_MAX:
+            raise AssertionError(f"{name}: residual over the limit")
+    log(f"  solve_cg at solve_pcg's {PAR_PCG_ITERS} iterations: float64 "
+        f"relative residual "
+        f"{rel_res(op.solve_cg(rhs, iters=PAR_PCG_ITERS)):.3e}")
+    xs, t = timed(lambda: op.solve_chebyshev(rhs, iters=PAR_CHEB_ITERS))
+    on_card("solve_chebyshev", xs)
+    res = rel_res(xs)
+    log(f"  solve_chebyshev: {PAR_CHEB_ITERS} iterations with bounds "
+        f"{op._bounds[0]:.6f}, {op._bounds[1]:.6f} from eigen_values(32) "
+        f"(first call, Lanczos included) {t * 1e3:.1f} ms; float64 relative "
+        f"residual {res:.3e} (limit {PAR_CHEB_RES_MAX:g})")
+    if not res <= PAR_CHEB_RES_MAX:
+        raise AssertionError("solve_chebyshev: residual over the limit")
+    _, t_eig = timed(lambda: op.eigen_values(32))
+    v0 = torch.as_tensor(np.random.default_rng(SEED + 9).standard_normal(
+        n).astype(np.float32), device=dev)
+    sharded = pl.ritz_values(*pl.lanczos_sharded_from(
+        op.sa, torch.nn.functional.pad(v0, (0, op.sa.padded_rows - n)), 32,
+        op.mesh, n=n))
+    single = _ritz_values(LanczosSetup.build(a), v0, 32)
+    on_card("sharded Ritz values", sharded)
+    for i, name in ((0, "min"), (-1, "max")):
+        d = abs(float(sharded[i]) - float(single[i]))
+        log(f"  Ritz {name} (k = 32, one seeded v0): sharded "
+            f"{float(sharded[i]):.7f}, single-device {float(single[i]):.7f}, "
+            f"|d| {d:.3e} (limit {PAR_RITZ_REL:g}·|λ|)")
+        if not d <= PAR_RITZ_REL * abs(float(single[i])):
+            raise AssertionError(f"sharded Lanczos: Ritz {name} off")
+    log(f"  eigen_values(32): {t_eig * 1e3:.1f} ms")
+    cs, t_sp = timed(lambda: op.matmul_sparse(a))
+    ref, _ = timed(lambda: sop.matmul_sparse(a))
+    same_csr(f"DistributedOperator.matmul_sparse(A) at "
+             f"{PAR_SERVING_SHARDS} shards vs SparseOperator's", cs, ref)
+    log(f"  matmul_sparse: first call (plans) {t_sp:.3f} s, cached "
+        f"{timed(lambda: op.matmul_sparse(a))[1] * 1e3:.1f} ms")
+
+    # (e), second half: CG over NCCL at world size 1
+    op_d = DistributedOperator(a, row_mesh(comm="dist"))
+    op_l = DistributedOperator(a, row_mesh(1, comm="local"))
+    x_d, x_l = (o.solve_cg(rhs, iters=PAR_CG_ITERS) for o in (op_d, op_l))
+    on_card("solve_cg over NCCL", x_d)
+    same = bool(torch.equal(x_d, x_l))
+    log(f"(e) solve_cg ({PAR_CG_ITERS} iterations) at world size 1: "
+        f"TorchDistComm/NCCL bitwise equal to LocalComm: {same}")
+    if not same:
+        raise AssertionError("solve_cg over NCCL differs from LocalComm")
+    dist.destroy_process_group()
+    del op, sop, op_d, op_l
+
+    # (c) TSQR at 2²⁰ × 64
+    t_in = torch.randn(TSQR_SHAPE, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 9), device=dev)
+    mesh = row_mesh(PAR_SHARDS, comm="local")
+    (q, rr), t = timed(lambda: pts.tsqr_sharded(t_in, mesh))
+    on_card("tsqr_sharded", q, rr)
+    ad, qd = t_in.double(), q.double()
+    res = float(torch.linalg.norm(ad - qd @ rr.double())
+                / torch.linalg.norm(ad))
+    orth = float((qd.T @ qd - torch.eye(TSQR_SHAPE[1], dtype=torch.float64,
+                                         device=dev)).abs().max())
+    del ad, qd
+    log(f"(c) tsqr_sharded {TSQR_SHAPE[0]}x{TSQR_SHAPE[1]} at {PAR_SHARDS} "
+        f"shards: ‖A − QR‖_F/‖A‖_F {res:.3e} (limit {TSQR_RES_MAX:g}), "
+        f"max|QᵀQ − I| {orth:.3e} (limit {TSQR_ORTH_MAX:g})")
+    if not (res <= TSQR_RES_MAX and orth <= TSQR_ORTH_MAX):
+        raise AssertionError("tsqr_sharded: residual or orthogonality")
+    ms = {name: cuda_time_ms(fn, warmup=1, iters=3) for name, fn in (
+        ("tsqr_sharded", lambda: pts.tsqr_sharded(t_in, mesh)),
+        ("tsqr", lambda: tsqr(t_in)),
+        ("torch.linalg.qr", lambda: torch.linalg.qr(t_in)))}
+    log("  " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+        + " (CUDA events, median of 3, one operand)")
+    del t_in, q, rr
+
+    # (d) sharded SpGEMM on phase 16's operands
+    sa_, sb_ = (bench_csr(seed, PLANNED_N, SS_MUL_INSERTS, dev)
+                for seed in (5000, 6000))
+    plans, t_plan = timed(lambda: psg.plan_spgemm_sharded(sa_, sb_,
+                                                          PAR_SHARDS))
+    c_sh, t_num = timed(lambda: psg.spgemm_sharded(sa_, sb_, mesh,
+                                                    plans=plans))
+    same_csr(f"(d) spgemm_sharded (n {PLANNED_N}, {PAR_SHARDS} shards) vs "
+             f"spgemm_planned", c_sh, spg.spgemm_planned(sa_, sb_))
+    log(f"  plans {t_plan:.3f} s (host), numeric + assembly "
+        f"{t_num * 1e3:.1f} ms (host clock, synchronised)")
+
+    # (f) the dry run on the card
+    _, t = timed(lambda: dryrun_multichip(8))
+    log(f"(f) dryrun_multichip(8) on {dev}: ran to its end in {t:.2f} s")
+
+
+def same_csr(name: str, got, want) -> None:
+    """Pattern entry for entry, values within PAR_VALUES_RTOL of max|ref|."""
+    on_card(name, got.values, got.indices)
+    gp, gi, gv = got.numpy()
+    wp, wi, wv = want.numpy()
+    if not (got.shape == want.shape and np.array_equal(gp, wp)
+            and np.array_equal(gi, wi)):
+        raise AssertionError(f"{name}: the pattern differs")
+    err = float(np.abs(gv - wv).max()) if wv.size else 0.0
+    scale = float(np.abs(wv).max()) if wv.size else 1.0
+    log(f"  {name}: pattern equal ({wv.size} entries), max abs err "
+        f"{err:.3e} (limit {PAR_VALUES_RTOL:g}·max|ref| = "
+        f"{PAR_VALUES_RTOL * scale:.3e})")
+    if not err <= PAR_VALUES_RTOL * scale:
+        raise AssertionError(f"{name}: values differ")
+
+
+def parallel_phase(dev, a_st, b_st, ref) -> dict:
+    """Phase 19: the distributed layer on the card; the launch counts are
+    set to 0 right before and read right after."""
+    log("parallel/ (phase 19): logical shards on one card (LocalComm), "
+        "NCCL at world size 1 (TorchDistComm):")
+    t0 = time.perf_counter()
+    base = fresh_peak()
+    zero_launches()
+    ms = parallel_spmm(a_st, b_st, ref)
+    log_peak("  (a) SpMM strategies", base)
+    nccl_ring(a_st, b_st)
+    parallel_serving(dev)
+    launches = read_launches()
+    log(f"  phase 19 launches: {launches}; {time.perf_counter() - t0:.1f} s")
+    if launches["spmm_stream"] < 1:
+        raise AssertionError("phase 19 launched no K2")
+    return ms
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -1749,11 +2122,10 @@ def main() -> None:
     err, ms, plain_ms = k1_vs_plain(bsr, b_bsr, "(64, 256) rung", 10)
 
     def bsr_library():
-        t = torch.sparse_bsr_tensor(
-            bsr.brow_ptr.long(), bsr.block_cols.long(), bsr.blocks,
-            size=(bsr.padded_rows, bsr.padded_cols))
+        t = live_blocks_csr(bsr)
         return lambda: torch.sparse.mm(t, b_bsr)
-    lib_ms = library_time("torch.sparse.mm(sparse_bsr_tensor (64, 256), B)",
+    lib_ms = library_time("torch.sparse.mm(sparse_csr_tensor of the live "
+                          "(64, 256) blocks, B; the conversion untimed)",
                           bsr_library, k1.spmm_bsr(bsr, b_bsr), 10)
     n_out = int(b_bsr.shape[1])
     # the live blocks, B and the index lists read once, C written once;
@@ -1814,6 +2186,7 @@ def main() -> None:
             raise AssertionError("the stream rung did not launch the sliced "
                                  "K2 kernel twice")
         checks.append((name, a, b, out))
+    ref_st = out    # the stream rung's product, phase 19's reference
     launches = read_launches()
     if any(launches[k] for k in ("runs_read", "addback_resident",
                                  "panel_addback")):
@@ -1841,8 +2214,13 @@ def main() -> None:
                                  device=dev).float())
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # ---- 19. parallel/, while the 1M-row operand is resident ---------------
+    t0 = time.perf_counter()
+    parallel_phase(dev, a_st, b_st, ref_st)
+    torch.cuda.empty_cache()
+    log(f"  [parallel_phase: {time.perf_counter() - t0:.1f} s]")
     # the rung loops leave a and b bound to the 1M-row operand (≈ 2.8 GiB)
-    del a_dense, b_dense, a_bsr, b_bsr, a_st, b_st, bsr, plan, a, b
+    del a_dense, b_dense, a_bsr, b_bsr, a_st, b_st, bsr, plan, a, b, ref_st
     torch.cuda.empty_cache()
 
     # ---- 6. solver main path ------------------------------------------
