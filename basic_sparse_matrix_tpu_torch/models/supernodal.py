@@ -776,9 +776,21 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
 
     Out-of-range ranks (padding lanes, upper wedge) fall out of the one-hot
     support or land on ``scratch``, which the caller re-zeroes. The
-    add-back modes update ``lvals`` in place."""
-    Ucnt, I, J = u3.shape
+    add-back modes update ``lvals`` in place. The merge is
+    :func:`_merge_rects`, the add-back :func:`_apply_rects` (the
+    distributed factorization sums the ranks' merged rects between the
+    two)."""
     St, Wt = tcp.shape
+    p = _merge_rects(u3, meta, irows, ibelow, jrows, seg, St, Rd, Wt)
+    return _apply_rects(lvals, p, tcp, tnr, twd, scratch, mode, vshape)
+
+
+def _merge_rects(u3, meta, irows, ibelow, jrows, seg, St: int, Rd: int,
+                 Wt: int) -> torch.Tensor:
+    """Embed each update ``u3`` (U, I, J) into its target's (Rd, Wt) rect
+    and merge the updates of one target (``seg`` indexes the level's
+    target table): the (St, Rd, Wt) rects, not negated."""
+    Ucnt, I, J = u3.shape
     dt = u3.dtype
     ni, nj, his, c0s = (meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3])
     ii = _arange(I, u3)
@@ -809,6 +821,15 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
             p = p + merge_chunk(u3[sl], ri[sl], rj[sl], seg[sl])
     else:
         p = merge_chunk(u3, ri, rj, seg)
+    return p
+
+
+def _apply_rects(lvals, p, tcp, tnr, twd, scratch: int, mode: str,
+                 vshape=None):
+    """Subtract the merged rects ``p`` (St, Rd, Wt) from their panels'
+    storage by ``mode`` ("delta", "vmem" or "pallas", as
+    :func:`_delta_scatter` describes); in place."""
+    St, Rd, Wt = p.shape
     if mode == "vmem":
         if lvals.is_cuda:
             from ..ops.pallas.addback_resident import addback_rects
@@ -821,8 +842,8 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
 
             return panel_addback_rects(lvals, p, tcp, tnr, twd)
         return _addback_sheared_pallas(lvals, p, tcp, twd)
-    rr = _arange(Rd, u3)[None, :, None]
-    wwt = _arange(Wt, u3)[None, None, :]
+    rr = _arange(Rd, p)[None, :, None]
+    wwt = _arange(Wt, p)[None, None, :]
     mask = ((wwt < twd[:, None, None]) & (rr >= wwt)
             & (rr < tnr[:, None, None]))
     pos = torch.where(mask, tcp[:, None, :] + rr - wwt, scratch)
@@ -842,6 +863,55 @@ def _nan_failed(lt: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
                                   device=lt.device), lt)
 
 
+def _update_products(lvals, base, meta, irows, ibelow, jrows, jcp,
+                     scratch: int, window: bool, kread=()) -> torch.Tensor:
+    """The batched panel-outer-product updates ``L_d[I,:] @ L_d[J,:]ᵀ`` of
+    the given update tables: (U, I, J)."""
+    I = irows.shape[1]
+    J = jrows.shape[1]
+    if window:
+        A, B = _upd_windows(lvals, base, meta, scratch, I, J, kread)
+    else:
+        ga, gb, _ = _upd_positions(base, meta, irows, ibelow, jrows, jcp,
+                                   scratch, build_scatter=False)
+        A = lvals[ga]                          # (U, I, W)
+        B = lvals[gb]                          # (U, J, W)
+    return torch.einsum("uiw,ujw->uij", A, B)
+
+
+def _panel_reads(lvals, cp, r_tab, tv, R: int, tp, bp, window: bool,
+                 kread=()):
+    """The panels' top triangles (S, W, W) and below blocks (S, R, W), as
+    windows or through the positions ``tp``/``bp``."""
+    if window:
+        return _panel_windows(lvals, cp, tv, r_tab, R, kread)
+    return lvals[tp], lvals[bp]
+
+
+def _panel_factors(T, Bp, tv):
+    """Batched panel finalisation: the top triangles' Cholesky factors
+    (non-finite entries zeroed, NaN for a failed panel) and the below
+    blocks solved against them."""
+    eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
+    # make padded columns well-posed: unit diagonal, zero elsewhere
+    Tsym = T + torch.where(tv[:, :, None] & tv[:, None, :], 0.0, eye)
+    Lt, info = torch.linalg.cholesky_ex(
+        Tsym + torch.triu(Tsym.transpose(1, 2), 1))
+    Lt = _nan_failed(Lt, info)
+    # solve Bp_new·Ltᵀ = Bp → Bp_new = Bp·Lt^{-T}
+    Bn = torch.linalg.solve_triangular(Lt, Bp.transpose(1, 2),
+                                       upper=False).transpose(1, 2)
+    return torch.where(torch.isfinite(Lt), torch.tril(Lt), 0.0), Bn
+
+
+def _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
+                     scratch: int):
+    """Subtract the updates ``U`` (U, I, J) element by element; in place."""
+    _, _, sc = _upd_positions(base, meta, irows, ibelow, jrows, jcp,
+                              scratch, build_gathers=False)
+    return lvals.index_add_(0, sc.reshape(-1), (-U).reshape(-1))
+
+
 def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
                 window: bool = False, smode: str = "element",
                 vshape=None, kread=()):
@@ -853,45 +923,22 @@ def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
     Updates ``lvals`` in place and returns it."""
     (base, meta, irows, ibelow, jrows, jcp, cp, r_tab, tv,
      tcp, tnr, twd, seg) = tabs
-    I = irows.shape[1]
-    J = jrows.shape[1]
     # 1) batched panel-outer-product updates
-    if window:
-        A, B = _upd_windows(lvals, base, meta, scratch, I, J, kread)
-    else:
-        ga, gb, _ = _upd_positions(base, meta, irows, ibelow, jrows, jcp,
-                                   scratch, build_scatter=False)
-        A = lvals[ga]                          # (U, I, W)
-        B = lvals[gb]                          # (U, J, W)
-    U = torch.einsum("uiw,ujw->uij", A, B)
+    U = _update_products(lvals, base, meta, irows, ibelow, jrows, jcp,
+                         scratch, window, kread)
     if smode in ("delta", "pallas", "vmem"):
         lvals = _delta_scatter(lvals, U, meta, irows, ibelow, jrows,
                                tcp, tnr, twd, seg, Rd, scratch, smode,
                                vshape)
     else:
-        _, _, sc = _upd_positions(base, meta, irows, ibelow, jrows, jcp,
-                                  scratch, build_gathers=False)
-        lvals.index_add_(0, sc.reshape(-1), (-U).reshape(-1))
+        _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
+                         scratch)
     lvals[scratch] = 0.0
 
     # 2) batched panel finalisation
     tp, bp = _panel_positions(cp, r_tab, tv, R, scratch)
-    if window:
-        T, Bp = _panel_windows(lvals, cp, tv, r_tab, R, kread)
-    else:
-        T = lvals[tp]                          # (S, W, W) lower part
-        Bp = lvals[bp]                         # (S, R, W)
-    eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
-    # make padded columns well-posed: unit diagonal, zero elsewhere
-    Tsym = T + torch.where(tv[:, :, None] & tv[:, None, :], 0.0, eye)
-    Lt, info = torch.linalg.cholesky_ex(
-        Tsym + torch.triu(Tsym.transpose(1, 2), 1))
-    Lt = _nan_failed(Lt, info)
-    # solve Bp_new·Ltᵀ = Bp → Bp_new = Bp·Lt^{-T}
-    Bn = torch.linalg.solve_triangular(Lt, Bp.transpose(1, 2),
-                                       upper=False).transpose(1, 2)
-    lvals[tp] = torch.where(torch.isfinite(Lt), torch.tril(Lt), 0.0)
-    lvals[bp] = Bn
+    T, Bp = _panel_reads(lvals, cp, r_tab, tv, R, tp, bp, window, kread)
+    lvals[tp], lvals[bp] = _panel_factors(T, Bp, tv)
     lvals[scratch] = 0.0
     return lvals
 
@@ -1012,6 +1059,18 @@ def _read_mode(gather: str):
     return gather == "window"
 
 
+def _numeric_modes(sched: SupernodalSchedule):
+    """(read mode, scatter mode, ``lvals`` length past ``nnz_l``) under the
+    current config: the tail padding keeps window reads and add-back
+    column rows from clamping into live data."""
+    cfg = get_config()
+    window = _read_mode(cfg.supernodal_gather)
+    mode = cfg.supernodal_scatter
+    pad = 1 + (_win_pad(sched) if _needs_win_pad(sched, window) else 0) \
+        + _pallas_pad(sched, mode)
+    return window, mode, pad
+
+
 def factorize_supernodal(sched: SupernodalSchedule,
                          a_values: torch.Tensor) -> torch.Tensor:
     """Numeric phase on ``a_values``' device; returns L's flat CSC value
@@ -1020,11 +1079,7 @@ def factorize_supernodal(sched: SupernodalSchedule,
     ``supernodal_groups_per_program`` bounds XLA programs in the JAX
     package; PyTorch runs eagerly, so it is accepted and changes nothing
     here."""
-    cfg = get_config()
-    window = _read_mode(cfg.supernodal_gather)
-    mode = cfg.supernodal_scatter
-    pad = 1 + (_win_pad(sched) if _needs_win_pad(sched, window) else 0) \
-        + _pallas_pad(sched, mode)
+    window, mode, pad = _numeric_modes(sched)
     scratch = sched.nnz_l
     with matmul_precision():
         lvals = _init_lvals(sched, a_values, pad)

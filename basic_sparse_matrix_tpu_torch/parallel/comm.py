@@ -11,7 +11,7 @@ bulk-synchronous form: a process runs the members ``local`` of an axis,
 each step maps over them, and each collective takes one tensor per local
 member and returns one per local member.
 
-Two communicators implement the same four methods:
+Two communicators implement the same five methods:
 
 * :class:`LocalComm` runs every member of the axis in this process (the
   logical shards of one device, or of the CPU). A gathered or reduced
@@ -33,6 +33,10 @@ Member ``i`` of an axis of ``size`` members:
   tensor and sends its own to ``(i - 1) % size`` (JAX ``ppermute`` with
   ``perm = [(i, (i - 1) % size)]``). At size 1 it returns the input and
   posts nothing.
+* ``shift(xs, offset)``: the non-cyclic shift. Member ``i`` receives member
+  ``i - offset``'s tensor, or zeros where no such member exists (JAX
+  ``ppermute`` with pairs ``(i, i + offset)``: the open edge is filled with
+  zeros). At size 1 (``offset != 0``) it returns zeros and posts nothing.
 """
 
 from __future__ import annotations
@@ -70,6 +74,12 @@ class LocalComm:
     def ring_shift(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         xs = list(xs)
         return xs[1:] + xs[:1]
+
+    def shift(self, xs: Sequence[torch.Tensor], offset: int
+              ) -> List[torch.Tensor]:
+        xs = list(xs)
+        return [xs[i - offset] if 0 <= i - offset < self.size
+                else torch.zeros_like(xs[i]) for i in range(self.size)]
 
 
 class TorchDistComm:
@@ -121,4 +131,25 @@ class TorchDistComm:
                           self.group)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        return [buf]
+
+    def shift(self, xs: Sequence[torch.Tensor], offset: int
+              ) -> List[torch.Tensor]:
+        (x,) = xs
+        if offset == 0:
+            return [x]
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        buf = torch.zeros_like(x)
+        src, dst = self.index - offset, self.index + offset
+        ops = []
+        if 0 <= dst < self.size:
+            ops.append(dist.P2POp(dist.isend, x, self.ranks[dst], self.group))
+        if 0 <= src < self.size:
+            ops.append(dist.P2POp(dist.irecv, buf, self.ranks[src],
+                                  self.group))
+        if ops:     # an edge rank posts one side; a lone rank posts none
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
         return [buf]

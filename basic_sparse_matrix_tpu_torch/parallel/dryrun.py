@@ -4,14 +4,15 @@ ranks of one device: the port's counterpart of
 
 The same steps in the same order: a 2-D mesh (rows × cols) when
 ``n_devices`` is even, else a 1-D one; ring SpMM (2-D when the mesh has a
-``"cols"`` axis); CG (20 iterations); block-Jacobi PCG (15); Lanczos (16)
-and Chebyshev (80) on a 1-D mesh; sharded SpGEMM; then the ragged stage:
-the 13³ Laplacian under the port's nested-dissection order
-(``ops/reorder.py``), 2197 rows on shards that do not divide it, through
-ring SpMM and PCG (60) to a relative residual of 1e-4. The direct steps of
-the JAX dry run (distributed Cholesky, triangular solves, supernodal
-Cholesky, BCR) belong to ``parallel/`` slice C, not yet ported, and are
-not run.
+``"cols"`` axis); CG (20 iterations); block-Jacobi PCG (15); the direct
+pipeline (``analyze`` → ``factorize_sharded`` → ``csc_to_csr_l`` → forward
+and backward ``solve_sparse_distributed``); ``cholesky_supernodal_
+distributed``, whose ``L Lᵀ`` must equal A within 1e-3; sharded SpGEMM;
+on a 1-D mesh ``bcr_solve_sharded_csr`` (block 8, two right-hand sides),
+Lanczos (16) and Chebyshev (80); then the ragged stage: the 13³ Laplacian
+under the port's nested-dissection order (``ops/reorder.py``), 2197 rows
+on shards that do not divide it, through ring SpMM and PCG (60) to a
+relative residual of 1e-4. Each step is held to the JAX dry run's limit.
 
 Every step runs on :class:`~.comm.LocalComm` over ``n_devices`` ranks on
 ``device`` (default: the configured default device, the card).
@@ -24,8 +25,10 @@ import torch
 
 from ..ops.csr import CSR
 from ..utils.config import default_device
+from .bcr import bcr_solve_sharded_csr
 from .cg import cg_solve_sharded
 from .chebyshev import chebyshev_solve_sharded
+from .cholesky import factorize_sharded
 from .lanczos import eigen_values_lanczos_sharded
 from .mesh import make_mesh
 from .pcg import build_block_jacobi, pcg_solve_sharded
@@ -33,6 +36,8 @@ from .sharded import put_sharded, shard_csr, unshard_rows
 from .spgemm_sparse import spgemm_sharded
 from .spmm import spmm_ring
 from .spmm2d import spmm_ring_2d
+from .supernodal import cholesky_supernodal_distributed
+from .triangular import solve_sparse_distributed
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -65,6 +70,7 @@ def _laplacian_13(kk: int = 13):
 def dryrun_multichip(n_devices: int, device=None) -> None:
     """Run the pipeline of the module docstring; raises AssertionError on
     a result outside its limit."""
+    from ..models.sparse_cholesky import analyze, csc_to_csr_l
     from ..ops.reorder import nd_permutation, permute_symmetric
 
     dev = default_device(device)
@@ -103,7 +109,30 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     _check(np.allclose(dense @ xpr, b[:, 0], rtol=1e-2, atol=1e-2),
            "distributed PCG mismatch")
 
+    # Direct pipeline: distributed scatter-list Cholesky + distributed
+    # triangular solves
+    sched = analyze(a)
+    lfac_sc = csc_to_csr_l(sched, factorize_sharded(sched, a.values, mesh))
+    y1 = solve_sparse_distributed(lfac_sc, b[:, :1], mesh, lower=True)
+    xx = solve_sparse_distributed(lfac_sc.transpose(), y1, mesh, lower=False)
+    _check(np.allclose(dense @ _host(xx).ravel(), b[:, 0], rtol=1e-2,
+                       atol=1e-2), "distributed direct mismatch")
+
+    # Panel-granular: distributed supernodal Cholesky
+    l_sn = _host(cholesky_supernodal_distributed(a, mesh).todense())
+    _check(np.allclose(l_sn @ l_sn.T, dense, rtol=1e-3, atol=1e-3),
+           "distributed supernodal Cholesky mismatch")
+
+    c = spgemm_sharded(a, a, mesh)
+    _check(np.allclose(_host(c.todense()), dense @ dense, rtol=1e-4,
+                       atol=1e-4), "distributed SpGEMM mismatch")
+
+    # Banded: distributed block cyclic reduction on a 1-D mesh
     mesh1d = make_mesh((n_devices,), ("rows",), comm="local", device=dev)
+    xb = _host(bcr_solve_sharded_csr(a, b[:, :2], mesh1d, nb=8))
+    _check(np.allclose(dense @ xb, b[:, :2], rtol=1e-2, atol=1e-2),
+           "distributed BCR mismatch")
+
     sa1 = put_sharded(shard_csr(a, n_devices), mesh1d)
     ritz = _host(eigen_values_lanczos_sharded(sa1, mesh1d, k=16, n=n))
     lam = np.linalg.eigvalsh(dense)
@@ -113,10 +142,6 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     xcr = _host(unshard_rows(xc, n))
     _check(np.allclose(dense @ xcr, b[:, 0], rtol=1e-2, atol=1e-2),
            "distributed Chebyshev mismatch")
-
-    c = spgemm_sharded(a, a, mesh)
-    _check(np.allclose(_host(c.todense()), dense @ dense, rtol=1e-4,
-                       atol=1e-4), "distributed SpGEMM mismatch")
 
     # Ragged stage: 2197 rows do not divide into n_devices shards.
     ns, rr, cc, vv = _laplacian_13()

@@ -177,6 +177,34 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     size 1, each bitwise equal to ``LocalComm`` at one shard; (f)
     ``dryrun_multichip(8)`` on the card. Every result must lie on the card;
     NCCL that cannot start fails the smoke.
+20. ``parallel/`` direct solvers and BCR, run after phase 18, at full width
+    on 4 logical shards (``LocalComm``), each beside the single-device
+    function on the same input in the same run: (a) the 33³ Laplacian under
+    ``ordering="nd"`` (phase 6's input): ``factorize_supernodal_sharded``
+    within 1e-5 of max|ref| of ``factorize_supernodal`` on the same
+    schedule (the counts of K3 and the add-back set to 0 right before and
+    read right after: K3 must launch and the rect entry once per routed
+    level, as in phase 6), then ``solve_sparse_distributed`` forward and
+    backward on the assembled factor (schedules built inside) and the same
+    solves on schedules built once, at 1 and 8 right-hand sides, under
+    phase 6's limits and against the single-device solves; (b) the 10⁶-node
+    tree Laplacian + I under ``ordering="rcm"`` (phase 11's input):
+    ``factorize_sharded`` against ``factorize``, then the same solves;
+    (c) the 33³ Laplacian under ``ordering="rcm"`` (phase 10's input, nb
+    840, 43 block rows padded to 64): ``bcr_solve_sharded_csr`` at 1 and 8
+    right-hand sides against ``BCRSolver``; (d) at world size 1 over NCCL,
+    on the 14³ Laplacian, against ``LocalComm`` at one shard, with torch's
+    deterministic algorithms on (a CUDA ``index_add_`` then adds in a fixed
+    order instead of with atomics): ``factorize_sharded``,
+    ``solve_triangular_sharded``, ``bcr_solve_sharded`` and
+    ``build_global_sharded_csr`` + ``spmm_sharded`` bitwise,
+    ``factorize_supernodal_sharded`` within 1e-6 of max|ref| (the add-back
+    kernel's ``atomicAdd`` may sum in another order); (e) ``dryrun_multichip(8)``,
+    the direct and BCR steps included. Set-up by part, ms per
+    factorization and per solve beside one device, launches and the peak
+    above each part's start are logged; every result must lie on the card.
+    The K3, K4 and K5 entries of ``kernels`` carry (a)'s counts as
+    ``launches_parallel``.
 
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
@@ -1829,18 +1857,11 @@ def parallel_spmm(a_st, b_st, ref) -> dict:
     return ms
 
 
-def nccl_ring(a_st, b_st) -> None:
-    """19(e), first half: ``spmm_ring`` through ``TorchDistComm`` over NCCL
-    at world size 1 against ``LocalComm`` at one shard, bit for bit (the
-    process group stays up for the CG half in :func:`parallel_serving`)."""
+def nccl_up() -> None:
+    """An NCCL process group of world size 1 on a free local port."""
     import datetime
 
     import torch.distributed as dist
-
-    from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
-    from basic_sparse_matrix_tpu_torch.parallel import spmm as ps
-    from basic_sparse_matrix_tpu_torch.parallel.comm import TorchDistComm
-    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
 
     port = free_port()
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
@@ -1848,6 +1869,18 @@ def nccl_ring(a_st, b_st) -> None:
                             timeout=datetime.timedelta(seconds=300))
     log(f"  NCCL process group up: backend {dist.get_backend()}, world "
         f"{dist.get_world_size()}, tcp://127.0.0.1:{port}")
+
+
+def nccl_ring(a_st, b_st) -> None:
+    """19(e), first half: ``spmm_ring`` through ``TorchDistComm`` over NCCL
+    at world size 1 against ``LocalComm`` at one shard, bit for bit (the
+    process group stays up for the CG half in :func:`parallel_serving`)."""
+    from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
+    from basic_sparse_matrix_tpu_torch.parallel import spmm as ps
+    from basic_sparse_matrix_tpu_torch.parallel.comm import TorchDistComm
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+
+    nccl_up()
     mesh_d, mesh_l = row_mesh(comm="dist"), row_mesh(1, comm="local")
     if not isinstance(mesh_d.axis("rows"), TorchDistComm):
         raise AssertionError("row_mesh(comm='dist') is not on TorchDistComm")
@@ -2054,6 +2087,336 @@ def parallel_phase(dev, a_st, b_st, ref) -> dict:
     return ms
 
 
+# ---- 20. parallel/: the distributed direct solvers and BCR -----------------
+DIRECT_SHARDS = 4               # logical ranks on the one card
+DIRECT_FACTOR_ATOL_OF_MAX = 1e-5  # sharded factor vs the single-device one
+NCCL_ATOL_OF_MAX = 1e-6         # NCCL vs LocalComm where atomics may reorder
+
+
+def close_of_max(name: str, got, want, frac: float) -> float:
+    """``max|got - want| <= frac·max|want|``; returns the max abs error."""
+    on_card(name, got)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite values")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"  {name}: max abs err {err:.3e} (limit {frac:g}·max|ref| = "
+        f"{frac * scale:.3e}), bitwise equal {bool(torch.equal(got, want))}")
+    if not err <= frac * scale:
+        raise AssertionError(f"{name}: over the limit")
+    return err
+
+
+def dist_solves(fwd, bwd, b, mesh):
+    """Distributed forward solve on ``fwd``, then backward on the mirrored
+    schedule ``bwd`` (``b`` and the solution flipped, as
+    ``solve_sparse_distributed(lower=False)`` does)."""
+    from basic_sparse_matrix_tpu_torch.parallel import triangular as pt
+
+    y = pt.solve_triangular_sharded(fwd, b, mesh)
+    return torch.flip(pt.solve_triangular_sharded(bwd, torch.flip(y, (0,)),
+                                                  mesh), (0,))
+
+
+def single_solves(l, fwd, bwd, b):
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+
+    y = st.solve_triangular_sparse(l, b, fwd)
+    return st.solve_triangular_sparse(l, y, bwd, lower=False)
+
+
+def solve_pair(label: str, l, a, x_true, b8, mesh, single) -> dict:
+    """The distributed solves on the factor ``l`` of ``a``: once through
+    ``solve_sparse_distributed`` (schedules built inside), then on schedules
+    built once, 1 and 8 right-hand sides, each checked and timed beside the
+    single-device solves (``single = (l, fwd, bwd)``); ms by name."""
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+    from basic_sparse_matrix_tpu_torch.parallel import triangular as pt
+
+    b1 = b8[:, 0].contiguous()
+
+    def entry():
+        y = pt.solve_sparse_distributed(l, b1, mesh, lower=True)
+        return pt.solve_sparse_distributed(l.transpose(), y, mesh,
+                                           lower=False)
+    x, t_entry = timed(entry)
+    on_card(f"{label} solve_sparse_distributed", x)
+    check_solution(f"{label} solve_sparse_distributed, 1 rhs", a, x, x_true,
+                   b8)
+    (fwd, bwd), t_sched = timed(lambda: (
+        st.build_schedule(l, lower=True),
+        st.build_schedule(l.transpose(), lower=False)))
+    ms = {"entry_1rhs_s": t_entry, "schedules_s": t_sched}
+    for name, b in (("1 rhs", b1), ("8 rhs", b8)):
+        runs = [timed(lambda: dist_solves(fwd, bwd, b, mesh))
+                for _ in range(2)]
+        x = runs[-1][0]
+        check_solution(f"{label} distributed solve {name}", a, x, x_true, b)
+        xs, t_single = timed(lambda: single_solves(*single, b))
+        compare(f"{label} distributed solve {name} vs single-device", x, xs)
+        ms[name] = [t * 1e3 for _, t in runs]
+        ms[f"{name} single"] = t_single * 1e3
+        log(f"  {label} solve {name} at {DIRECT_SHARDS} shards: "
+            + " / ".join(f"{t:.1f}" for t in ms[name])
+            + f" ms host clock (synchronised), single device "
+            f"{t_single * 1e3:.1f} ms; levels fwd {fwd.n_levels}, bwd "
+            f"{bwd.n_levels}")
+    log(f"  {label}: solve_sparse_distributed forward + backward, 1 rhs, "
+        f"schedules built inside: {t_entry:.3f} s; the two schedules "
+        f"alone {t_sched:.3f} s (host)")
+    return ms
+
+
+def supernodal_sharded(dev, mesh) -> dict:
+    """20(a): the 33³ Laplacian under ND, factorize_supernodal_sharded at
+    4 logical shards against factorize_supernodal on the same schedule,
+    then the distributed solves; K3 and the add-back's rect entry must
+    launch, the rect entry once per routed level."""
+    from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops.reorder import permute_symmetric
+    from basic_sparse_matrix_tpu_torch.parallel import supernodal as ps
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)      # the default device
+    on_card("the 33³ Laplacian", a.values)
+    use_config(ordering="nd")
+    base = fresh_peak()
+    solver, setup = timed(lambda: prepare_direct(a))
+    if solver.kind != "supernodal":
+        raise AssertionError(f"tier {solver.kind!r}, expected supernodal")
+    sched = solver.sched
+    ap = permute_symmetric(a, solver.perm)
+    log(f"(a) supernodal, 33³ Laplacian under ND: single-device set-up "
+        f"{setup:.3f} s ({log_timings(solver.timings)}); {sched.n_groups} "
+        f"groups, nnz_l {sched.nnz_l}")
+    single, t_single = timed(lambda: sn.factorize_supernodal(sched,
+                                                            ap.values))
+    levels = {m: 0 for m in ("vmem", "pallas")}
+    for gi in range(sched.n_groups):
+        mode = sn._group_delta(sched, gi, "auto")
+        if mode in levels:
+            levels[mode] += int(sched.tabs[gi][0].shape[0])
+    x_true, b8 = seeded_system(ap, SEED + 20)
+    zero_launches()
+    lv, t_dist = timed(lambda: ps.factorize_supernodal_sharded(
+        sched, ap.values, mesh))
+    launches = read_launches()
+    close_of_max(f"factorize_supernodal_sharded at {DIRECT_SHARDS} shards vs "
+                 f"factorize_supernodal", lv, single,
+                 DIRECT_FACTOR_ATOL_OF_MAX)
+    log(f"  numeric: sharded {t_dist * 1e3:.1f} ms, single device "
+        f"{t_single * 1e3:.1f} ms (host clock, synchronised); launches "
+        f"{launches}; levels routed to K4 {levels['vmem']}, to K5 "
+        f"{levels['pallas']}")
+    if launches["runs_read"] < 1:
+        raise AssertionError("the sharded supernodal factorization launched "
+                             "no K3")
+    if (launches["addback_resident"], launches["panel_addback"]) != (
+            levels["vmem"], levels["pallas"]) or not (
+            levels["vmem"] or levels["pallas"]):
+        raise AssertionError("the add-back's rect entry did not launch once "
+                             "per routed level")
+    l, t_asm = timed(lambda: sn.assemble_factor(ap, lv, sched))
+    log(f"  assemble_factor {t_asm:.3f} s (host)")
+    ms = solve_pair("(a) supernodal", l, ap, x_true, b8, mesh,
+                    (solver._l, solver._fwd, solver._bwd))
+    log_peak("(a) supernodal", base)
+    use_config()
+    return {"launches": launches, "numeric_ms": t_dist * 1e3,
+            "single_ms": t_single * 1e3, **ms}
+
+
+def scatter_sharded(dev, mesh) -> dict:
+    """20(b): the 10⁶-node tree Laplacian + I under RCM, factorize_sharded
+    at 4 logical shards against factorize, then the distributed solves."""
+    from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.ops.reorder import permute_symmetric
+    from basic_sparse_matrix_tpu_torch.parallel import cholesky as pc
+
+    n, r, c, v = tree_laplacian(TREE_N, SEED + 5)
+    a = CSR.from_coo_arrays((n, n), r, c, v)
+    use_config(ordering="rcm")
+    base = fresh_peak()
+    solver, setup = timed(lambda: prepare_direct(a))
+    if solver.kind != "scatter":
+        raise AssertionError(f"tier {solver.kind!r}, expected scatter")
+    sched = solver.sched
+    ap = permute_symmetric(a, solver.perm)
+    log(f"(b) scatter-list, tree Laplacian + I, n {n} under RCM: "
+        f"single-device set-up {setup:.3f} s ({log_timings(solver.timings)});"
+        f" {sched.n_levels} levels, {sched.n_triples} triples")
+    single, t_single = timed(lambda: sc.factorize(sched, ap.values))
+    lv, t_dist = timed(lambda: pc.factorize_sharded(sched, ap.values, mesh))
+    close_of_max(f"factorize_sharded at {DIRECT_SHARDS} shards vs factorize",
+                 lv, single, DIRECT_FACTOR_ATOL_OF_MAX)
+    log(f"  numeric: sharded {t_dist * 1e3:.1f} ms, single device "
+        f"{t_single * 1e3:.1f} ms (host clock, synchronised)")
+    x_true, b8 = seeded_system(ap, SEED + 21)
+    l, t_asm = timed(lambda: sc.csc_to_csr_l(sched, lv))
+    log(f"  csc_to_csr_l {t_asm:.3f} s (host)")
+    ms = solve_pair("(b) scatter-list", l, ap, x_true, b8, mesh,
+                    (solver._l, solver._fwd, solver._bwd))
+    log_peak("(b) scatter-list", base)
+    use_config()
+    return {"numeric_ms": t_dist * 1e3, "single_ms": t_single * 1e3, **ms}
+
+
+def bcr_sharded(dev, mesh) -> dict:
+    """20(c): the 33³ Laplacian under RCM (nb 840, 43 block rows padded to
+    64 = 4·16), bcr_solve_sharded_csr at 1 and 8 right-hand sides against
+    the single-device BCRSolver."""
+    from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
+    from basic_sparse_matrix_tpu_torch.models.banded import (
+        bandwidth, block_size_for)
+    from basic_sparse_matrix_tpu_torch.ops.reorder import permute_symmetric
+    from basic_sparse_matrix_tpu_torch.parallel import bcr as pb
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)
+    use_config(ordering="rcm", banded_solver="bcr")
+    base = fresh_peak()
+    solver, setup = timed(lambda: prepare_direct(a))
+    ap = permute_symmetric(a, solver.perm)
+    nb = block_size_for(bandwidth(ap), n)
+    if solver.kind != "banded-bcr" or nb != BANDED_NB:
+        raise AssertionError(f"tier {solver.kind!r}, nb {nb}")
+    x_true, b8 = seeded_system(ap, SEED + 22)
+    log(f"(c) BCR, 33³ Laplacian under RCM: nb {nb}, {-(-n // nb)} block "
+        f"rows, single-device set-up {setup:.3f} s "
+        f"({log_timings(solver.timings)})")
+    ms = {}
+    for name, b in (("1 rhs", b8[:, 0].contiguous()), ("8 rhs", b8)):
+        runs = [timed(lambda: pb.bcr_solve_sharded_csr(ap, b, mesh))
+                for _ in range(2)]
+        x = runs[-1][0]
+        on_card(f"bcr_solve_sharded_csr {name}", x)
+        check_solution(f"(c) bcr_solve_sharded_csr {name}", ap, x, x_true,
+                       b8)
+        xs, t_single = timed(lambda: solver._banded.solve(b))
+        compare(f"(c) bcr_solve_sharded_csr {name} vs BCRSolver", x, xs)
+        ms[name] = [t * 1e3 for _, t in runs]
+        ms[f"{name} single"] = t_single * 1e3
+        log(f"  bcr_solve_sharded_csr {name} at {DIRECT_SHARDS} shards: "
+            + " / ".join(f"{t:.1f}" for t in ms[name])
+            + f" ms host clock (band_blocks on the host included), "
+            f"BCRSolver.solve {t_single * 1e3:.1f} ms")
+    log_peak("(c) BCR", base)
+    use_config()
+    return ms
+
+
+def nccl_direct(dev) -> None:
+    """20(d): at world size 1 over NCCL, the four distributed direct and
+    BCR functions and the row-block SpMM against LocalComm at one shard,
+    on the 14³ Laplacian."""
+    import torch.distributed as dist
+
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops.reorder import (
+        nd_permutation, permute_symmetric)
+    from basic_sparse_matrix_tpu_torch.parallel import bcr as pb
+    from basic_sparse_matrix_tpu_torch.parallel import cholesky as pc
+    from basic_sparse_matrix_tpu_torch.parallel import multihost as mh
+    from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
+    from basic_sparse_matrix_tpu_torch.parallel import spmm as psp
+    from basic_sparse_matrix_tpu_torch.parallel import supernodal as ps
+    from basic_sparse_matrix_tpu_torch.parallel import triangular as pt
+    from basic_sparse_matrix_tpu_torch.parallel.comm import TorchDistComm
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+
+    n, r, c, v = laplacian_3d(FORMULATION_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)
+    ap = permute_symmetric(a, nd_permutation(a))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    b8 = torch.randn((n, 8), generator=gen, device=dev)
+    nccl_up()
+    mesh_d, mesh_l = row_mesh(comm="dist"), row_mesh(1, comm="local")
+    if not isinstance(mesh_d.axis("rows"), TorchDistComm):
+        raise AssertionError("row_mesh(comm='dist') is not on TorchDistComm")
+    log(f"(d) NCCL at world size 1 against LocalComm at one shard, 14³ "
+        f"Laplacian (n {n}), with torch's deterministic algorithms on (a "
+        f"CUDA index_add_ then sums in a fixed order, no atomics): bitwise "
+        f"where nothing else adds with atomics, within "
+        f"{NCCL_ATOL_OF_MAX:g}·max|ref| where the add-back kernel's "
+        f"atomicAdd does:")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        sched = sc.analyze(ap)
+        f_d, f_l = (pc.factorize_sharded(sched, ap.values, m)
+                    for m in (mesh_d, mesh_l))
+        same_bits("factorize_sharded (deterministic index_add_)", f_d, f_l)
+        fwd = st.build_schedule(sc.csc_to_csr_l(sched, f_l))
+        y_d, y_l = (pt.solve_triangular_sharded(fwd, b8, m)
+                    for m in (mesh_d, mesh_l))
+        same_bits("solve_triangular_sharded (deterministic index_add_)",
+                  y_d, y_l)
+        ssn = sn.analyze_supernodal(ap)
+        s_d, s_l = (ps.factorize_supernodal_sharded(ssn, ap.values, m)
+                    for m in (mesh_d, mesh_l))
+        close_of_max("factorize_supernodal_sharded (the add-back's "
+                     "atomicAdd)", s_d, s_l, NCCL_ATOL_OF_MAX)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # natural order: bandwidth 196, 14 blocks padded to 16
+    x_d, x_l = (pb.bcr_solve_sharded_csr(a, b8, m, nb=FORMULATION_K ** 2)
+                for m in (mesh_d, mesh_l))
+    same_bits("bcr_solve_sharded (no atomics)", x_d, x_l)
+
+    def builder(spec):
+        keep = (r >= spec.row_start) & (r < spec.row_end)
+        return CSR.from_coo_arrays((spec.row_end - spec.row_start, n),
+                                   r[keep] - spec.row_start, c[keep], v[keep])
+    sa = mh.build_global_sharded_csr(mh.local_row_block(n, n), builder)
+    log(f"  build_global_sharded_csr at world size 1: shards {sa.shards}, "
+        f"nnz {sa.nnz}")
+    same_bits("build_global_sharded_csr + spmm_sharded (no atomics)",
+              psp.spmm_sharded(sa, b8, mh.global_row_mesh()),
+              psp.spmm_sharded(sh.put_sharded(sh.shard_csr(a, 1), mesh_l),
+                               b8, mesh_l))
+    dist.destroy_process_group()
+
+
+def same_bits(name: str, got, want) -> None:
+    on_card(name, got)
+    same = bool(torch.equal(got, want))
+    log(f"  {name}: bitwise equal to LocalComm {same}")
+    if not same:
+        raise AssertionError(f"{name}: NCCL differs from LocalComm")
+
+
+def direct_parallel_phase(dev) -> dict:
+    """Phase 20: the distributed direct solvers and BCR on the card at full
+    width (4 logical shards), NCCL at world size 1, the dry run; returns
+    (a)'s launch counts."""
+    from basic_sparse_matrix_tpu_torch.parallel.dryrun import dryrun_multichip
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+
+    log(f"parallel/ direct solvers (phase 20): {DIRECT_SHARDS} logical "
+        f"shards on one card (LocalComm), NCCL at world size 1:")
+    mesh = row_mesh(DIRECT_SHARDS, comm="local")
+    out = {}
+    for name, part in (("supernodal", supernodal_sharded),
+                       ("scatter", scatter_sharded), ("bcr", bcr_sharded)):
+        t0 = time.perf_counter()
+        out[name] = part(dev, mesh)
+        torch.cuda.empty_cache()
+        log(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    nccl_direct(dev)
+    log(f"  [nccl: {time.perf_counter() - t0:.1f} s]")
+    _, t = timed(lambda: dryrun_multichip(8))
+    log(f"(e) dryrun_multichip(8) on {dev}, the direct and BCR steps "
+        f"included: ran to its end in {t:.2f} s")
+    log("phase 20 summary: " + json.dumps(out, default=float))
+    return out["supernodal"]["launches"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -2255,6 +2618,17 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.append(k6_phase(dev, k2_ns_per_entry))
     log(f"  [k6_phase: {time.perf_counter() - t0:.1f} s]")
+
+    # ---- 20. parallel/: the distributed direct solvers and BCR -----------
+    t0 = time.perf_counter()
+    direct_launches = direct_parallel_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"  [direct_parallel_phase: {time.perf_counter() - t0:.1f} s]")
+    # K3 and the add-back's rect entry (counted by the K4/K5 wrappers) as
+    # the sharded supernodal factorization of 20(a) launched them
+    for k in kernels:
+        if k["name"] in ("runs_read", "addback_resident", "panel_addback"):
+            k["launches_parallel"] = direct_launches[k["name"]]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "

@@ -34,11 +34,13 @@ def _on_the_cpu():
         yield
 
 
-def _spawn(world, tmp_path):
+def _spawn(world, tmp_path, target=worker.run, extra=()):
+    """Run ``target(rank, world, init_file, out_dir, *extra)`` in ``world``
+    spawned processes; each rank's saved ``rank<r>.npz``, in rank order."""
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=worker.run,
+    procs = [ctx.Process(target=target,
                          args=(r, world, str(tmp_path / "pg_init"),
-                               str(tmp_path)))
+                               str(tmp_path), *extra))
              for r in range(world)]
     for p in procs:
         p.start()
