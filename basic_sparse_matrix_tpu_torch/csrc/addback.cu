@@ -18,10 +18,16 @@
 // as the level's products leave them, not sheared and not negated:
 //   lvals[tcp[s, w] + r - w] -= p[s, r, w]   for w < twd[s], w <= r < tnr[s]
 // which is the shear (storage row of column w = p[s, w:, w]) and the
-// negation followed by the span entry. The TPU kernels need the shear done
-// before them, as an array of 128-lane rows padded to a class width, because
-// Mosaic moves aligned windows; a CUDA thread reads p[s, r, w] where it lies,
-// so the sheared array, its pads and the passes that build them never exist.
+// negation followed by the span entry. It takes a batch of Bt systems of
+// one pattern in one launch, lvals (Bt, n) and p (Bt, St, Rd, Wt) with the
+// tables tcp, tnr, twd shared: system b adds p[b] into lvals[b], and an
+// index outside [0, n) is dropped for each system on its own (it never
+// lands in a neighbouring system). The span entry takes one system. The
+// TPU kernels need the shear done before them, as an array of 128-lane rows
+// padded to a class width, because Mosaic moves aligned windows; a CUDA
+// thread reads p[s, r, w] where it lies, so the sheared array, its pads and
+// the passes that build them never exist. (The TPU kernels have no batch
+// axis: JAX's vmap maps them over the systems.)
 //
 // What differs from the TPU kernels: the TPU runs the slots one after
 // another (a sequential loop inside one grid step, the factor resident in
@@ -219,19 +225,25 @@ addback_spans_scalar(float* __restrict__ lvals, long long n,
 
 // The rect entry. A tile is rows [r0, r0 + TR) x columns [w0, w0 + TC) of
 // one panel; blocks take tiles from a loop.
+// With a batch, the tiles of system b follow those of system b - 1: tile t
+// is tile t % (St * rtiles * ctiles) of system t / (St * rtiles * ctiles).
 template <typename I>
 __global__ void __launch_bounds__(THREADS)
 addback_rects_kernel(float* __restrict__ lvals, long long n,
                      const float* __restrict__ p, const I* __restrict__ tcp,
                      const I* __restrict__ tnr, const I* __restrict__ twd,
-                     long long ntiles, int rtiles, int ctiles, int Rd,
+                     long long ntiles, int St, int rtiles, int ctiles, int Rd,
                      int Wt) {
   __shared__ float tile[TR * TC];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const long long per_sys = (long long)St * rtiles * ctiles;
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const long long s = t / (rtiles * ctiles);
-    const int rem = (int)(t - s * (rtiles * ctiles));
+    const long long sys = t / per_sys;       // the system
+    const long long ts = t - sys * per_sys;  // its tile
+    const long long s = ts / (rtiles * ctiles);
+    const int rem = (int)(ts - s * (rtiles * ctiles));
+    float* const lv = lvals + sys * n;
     const int r0 = (rem / ctiles) * TR;
     const int w0 = (rem % ctiles) * TC;
     // live columns and rows of the panel; all three tests are uniform
@@ -244,7 +256,7 @@ addback_rects_kernel(float* __restrict__ lvals, long long n,
     const int rh = min(TR, nr - r0);
 
     // fill: along w as p lies; the wedge r < w stays unread
-    const float* src = p + (s * Rd + r0) * Wt + w0;
+    const float* src = p + ((sys * St + s) * Rd + r0) * Wt + w0;
     for (int e = threadIdx.x; e < rh * cw; e += THREADS) {
       const int i = e / cw;
       const int c = e - i * cw;
@@ -265,8 +277,8 @@ addback_rects_kernel(float* __restrict__ lvals, long long n,
       if (base + b > n) b = (int)max(n - base, (long long)a);
       const int cnt = b - a;
       if (cnt <= 0) continue;
-      const int m = misalign(lvals, base + a);
-      float* dst = lvals + base + a - m;
+      const int m = misalign(lv, base + a);
+      float* dst = lv + base + a - m;
       const int nd = (m + cnt + 3) >> 2;
       for (int j = lane; j < nd; j += 32) {
         float x[4];
@@ -303,18 +315,18 @@ int resident_blocks(K kernel) {
 
 template <typename I>
 int launch_rects(float* lvals, long long n, const float* p, const void* tcp,
-                 const void* tnr, const void* twd, int St, int Rd, int Wt,
-                 cudaStream_t s) {
+                 const void* tnr, const void* twd, int Bt, int St, int Rd,
+                 int Wt, cudaStream_t s) {
   static int resident = 0;  // per index type
   if (resident <= 0) resident = resident_blocks(addback_rects_kernel<I>);
   if (resident < 0) return -resident;
   const int rtiles = (Rd + TR - 1) / TR;
   const int ctiles = (Wt + TC - 1) / TC;
-  const long long ntiles = (long long)St * rtiles * ctiles;
+  const long long ntiles = (long long)Bt * St * rtiles * ctiles;
   const unsigned grid = (unsigned)min(ntiles, (long long)resident);
   addback_rects_kernel<I><<<grid, THREADS, 0, s>>>(
       lvals, n, p, static_cast<const I*>(tcp), static_cast<const I*>(tnr),
-      static_cast<const I*>(twd), ntiles, rtiles, ctiles, Rd, Wt);
+      static_cast<const I*>(twd), ntiles, St, rtiles, ctiles, Rd, Wt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,15 +373,16 @@ extern "C" int bsm_addback(float* lvals, long long n, const float* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// lvals (n,), p (St, Rd, Wt) contiguous, tcp (St, Wt), tnr and twd (St,) of
-// 32-bit (idx64 == 0) or 64-bit integers.
+// lvals (Bt, n), p (Bt, St, Rd, Wt) contiguous, tcp (St, Wt), tnr and twd
+// (St,) of 32-bit (idx64 == 0) or 64-bit integers, shared by the batch.
 extern "C" int bsm_addback_rects(float* lvals, long long n, const float* p,
                                  const void* tcp, const void* tnr,
-                                 const void* twd, int St, int Rd, int Wt,
-                                 int idx64, void* stream) {
-  if (St <= 0 || Rd <= 0 || Wt <= 0) return 0;
+                                 const void* twd, int Bt, int St, int Rd,
+                                 int Wt, int idx64, void* stream) {
+  if (Bt <= 0 || St <= 0 || Rd <= 0 || Wt <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return idx64 ? launch_rects<long long>(lvals, n, p, tcp, tnr, twd, St, Rd,
-                                         Wt, s)
-               : launch_rects<int>(lvals, n, p, tcp, tnr, twd, St, Rd, Wt, s);
+  return idx64 ? launch_rects<long long>(lvals, n, p, tcp, tnr, twd, Bt, St,
+                                         Rd, Wt, s)
+               : launch_rects<int>(lvals, n, p, tcp, tnr, twd, Bt, St, Rd,
+                                   Wt, s);
 }

@@ -23,6 +23,11 @@ of L's values stays, as does the guard ``where(diag > 0, 1/max(diag,
 1e-30), 0)`` (a column whose pivot is not positive gets a NaN diagonal and
 zeros below it).
 
+Batched values (``jax.vmap`` over the values in the JAX package): the
+numeric functions take ``a_values`` of shape (Bt, nnz), ``Bt`` matrices of
+one pattern, and work on ``lvals`` (Bt, nnz_l + 1), one scratch slot per
+system; every level is one set of operations for the whole batch.
+
 Levels: a column's updates come only from columns k with L[j, k] ≠ 0, so
 the level sets of L's own pattern (``symbolic.level_sets``, as the
 triangular solves use) order the factorization correctly. For the full
@@ -172,40 +177,50 @@ def analyze(a: CSR, *, incomplete: bool = False) -> CholeskySchedule:
 def initial_lvals(sched: CholeskySchedule,
                   a_values: torch.Tensor) -> torch.Tensor:
     """A's lower triangle scattered into L's CSC value array, plus one
-    trailing scratch slot, kept zero."""
-    lvals = torch.zeros(sched.nnz_l + 1, dtype=torch.float32,
-                        device=a_values.device)
-    return lvals.index_add_(0, sched.a_src_pos,
-                            a_values[sched.a_vals_idx].to(torch.float32))
+    trailing scratch slot, kept zero: (nnz_l + 1,), or (Bt, nnz_l + 1) for
+    ``a_values`` (Bt, nnz)."""
+    lvals = torch.zeros(a_values.shape[:-1] + (sched.nnz_l + 1,),
+                        dtype=torch.float32, device=a_values.device)
+    return lvals.index_add_(-1, sched.a_src_pos,
+                            a_values[..., sched.a_vals_idx].to(
+                                torch.float32))
 
 
 def factor_levels(sched: CholeskySchedule, lvals: torch.Tensor, lo: int,
                   hi: int) -> torch.Tensor:
-    """Apply levels ``lo`` .. ``hi - 1`` to ``lvals`` in place (a Python
-    loop; ``runtime.checkpoint`` snapshots the values between calls)."""
+    """Apply levels ``lo`` .. ``hi - 1`` to ``lvals`` ((nnz_l + 1,) or a
+    batch (Bt, nnz_l + 1)) in place (a Python loop; ``runtime.checkpoint``
+    snapshots the values between calls)."""
     for lv in range(lo, hi):
         u0, u1 = sched.upd_ptr[lv], sched.upd_ptr[lv + 1]
         if u1 > u0:
-            delta = lvals[sched.upd_a[u0:u1]] * lvals[sched.upd_b[u0:u1]]
-            lvals.index_add_(0, sched.upd_dst[u0:u1], delta, alpha=-1)
+            delta = lvals[..., sched.upd_a[u0:u1]] \
+                * lvals[..., sched.upd_b[u0:u1]]
+            lvals.index_add_(-1, sched.upd_dst[u0:u1], delta, alpha=-1)
         dpos = sched.col_diag[sched.col_ptr[lv]: sched.col_ptr[lv + 1]]
-        diag = lvals[dpos].sqrt()
+        diag = lvals[..., dpos].sqrt()
         inv = torch.where(diag > 0, 1.0 / diag.clamp_min(1e-30), 0.0)
-        lvals[dpos] = diag
+        lvals[..., dpos] = diag
         o0, o1 = sched.off_ptr[lv], sched.off_ptr[lv + 1]
         if o1 > o0:
             opos = sched.col_off[o0:o1]
-            lvals[opos] = lvals[opos] * inv[sched.col_seg[o0:o1]]
-    lvals[-1] = 0.0
+            lvals[..., opos] = lvals[..., opos] \
+                * inv[..., sched.col_seg[o0:o1]]
+    lvals[..., -1] = 0.0
     return lvals
 
 
 def factorize(sched: CholeskySchedule, a_values: torch.Tensor
               ) -> torch.Tensor:
     """Numeric phase on ``a_values``' device: L's CSC value array (length
-    ``nnz_l``), a Python loop over the levels."""
+    ``nnz_l``), a Python loop over the levels. ``a_values`` of shape (Bt,
+    nnz) factors ``Bt`` matrices of the schedule's pattern at once and
+    returns (Bt, nnz_l)."""
+    if a_values.ndim not in (1, 2):
+        raise ValueError(f"factorize takes a_values (nnz,) or (Bt, nnz), "
+                         f"got {tuple(a_values.shape)}")
     lvals = initial_lvals(sched, a_values)
-    return factor_levels(sched, lvals, 0, sched.n_levels)[:-1]
+    return factor_levels(sched, lvals, 0, sched.n_levels)[..., :-1]
 
 
 def csc_to_csr_l(sched: CholeskySchedule, lvals) -> CSR:

@@ -28,6 +28,17 @@ and finalises its panels. Every einsum and batched product runs under
 exactly only in full float32, so TF32 is off. Padding lands in a scratch
 slot that is re-zeroed each step.
 
+Batched values (the counterpart of ``jax.vmap`` over ``a_values``):
+``factorize_supernodal`` takes ``a_values`` of shape (Bt, nnz) and factors
+``Bt`` systems of one pattern on one schedule, ``lvals`` (Bt, nnz_l + pad)
+with one scratch slot per system. Every step of a level runs once for the
+whole batch: the gathers and K3 reads take the leading axis, the products
+and the panel factors are batched over it, the scatters add along the last
+axis, and on the card the add-back kernel's rect entry takes the batch in
+one launch, so a batch launches K3 and the add-back exactly as often as
+one system does. A panel that fails its Cholesky turns its own system's
+values to NaN only. The host schedule is built once.
+
 The per-group routing (``use_vmem``, ``use_pallas``, ``use_delta``,
 ``use_window``, ``kread``) comes from the JAX package's cost model, whose
 constants (``_VMEM_*``, ``_KREAD_*``, ``_PALLAS_MIN_ELEMENTS``,
@@ -39,6 +50,7 @@ as in the JAX package; they are unmeasured on the H100.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -201,15 +213,20 @@ def _upd_positions(base, meta, irows, ibelow, jrows, jcp, scratch,
 def _win(lvals, starts, L: int):
     """Batched contiguous-window gather: ``lvals[s : s + L]`` per start,
     with each start clamped into ``[0, len - L]`` as the JAX package's
-    ``dynamic_slice`` does. Returns starts.shape + (L,)."""
-    s = starts.clamp(0, max(lvals.shape[0] - L, 0))
-    return lvals[s[..., None] + _arange(L, starts)]
+    ``dynamic_slice`` does. Returns lvals.shape[:-1] + starts.shape + (L,)
+    (a batched ``lvals`` (Bt, N) reads every system at the same starts)."""
+    s = starts.clamp(0, max(lvals.shape[-1] - L, 0))
+    return lvals[..., s[..., None] + _arange(L, starts)]
 
 
 def _win_k(lvals, starts, L: int, kread):
     """Run reads through the K3 kernel when the matrix has a class for this
     run length (``kread`` is the schedule's class table) and the run count
-    is within the cap; plain windows otherwise."""
+    is within the cap; plain windows otherwise. The cap counts one system's
+    runs: a batch reads through K3 exactly where one system does, in one
+    launch (the kernel takes the batch on its grid and has no limit of its
+    own on the runs of a launch; the cap is the JAX package's TPU budget,
+    kept for the routing)."""
     if kread:
         lp = _kread_lpad(L)
         u, w = starts.shape
@@ -230,10 +247,10 @@ def _upd_windows(lvals, base, meta, scratch, I: int, J: int, kread=()):
     ii = _arange(I, base)
     jj = _arange(J, base)
     sbase = torch.where(vb, base, -1)    # dead runs; masked below
-    A = _win_k(lvals, sbase, I, kread).transpose(1, 2)      # (U, I, W)
+    A = _win_k(lvals, sbase, I, kread).transpose(-2, -1)    # (U, I, W)
     A = torch.where((ii[None, :, None] < ni[:, None, None])
                     & vb[:, None, :], A, 0.0)
-    B = _win_k(lvals, sbase, J, kread).transpose(1, 2)      # (U, J, W)
+    B = _win_k(lvals, sbase, J, kread).transpose(-2, -1)    # (U, J, W)
     B = torch.where((jj[None, :, None] < nj[:, None, None])
                     & vb[:, None, :], B, 0.0)
     return A, B
@@ -246,12 +263,12 @@ def _panel_windows(lvals, cp, tv, r_tab, R: int, kread=()):
     S, W = cp.shape
     il = _arange(W, cp)
     w = tv.sum(dim=-1)
-    T = _win_k(lvals, cp - il[None, :], W, kread).transpose(1, 2)
+    T = _win_k(lvals, cp - il[None, :], W, kread).transpose(-2, -1)
     tri = tv[:, :, None] & tv[:, None, :] & (
         il[:, None] >= il[None, :])[None]
     T = torch.where(tri, T, 0.0)
     Bp = _win_k(lvals, cp + w[:, None] - il[None, :], R,
-                kread).transpose(1, 2)                       # (S, R, W)
+                kread).transpose(-2, -1)                     # (S, R, W)
     bmask = tv[:, None, :] & (_arange(R, cp)[None, :, None]
                               < r_tab[:, None, None])
     Bp = torch.where(bmask, Bp, 0.0)
@@ -705,15 +722,17 @@ def analyze_supernodal(a: CSR, *, relax: int = 0) -> SupernodalSchedule:
 
 
 def _addback_sheared_vmem(lvals, p, tcp, twd, vshape):
-    """The K4 add-back of merged rects ``p`` (St, Rd, Wt) as the JAX package
-    forms it: shear by a reshape, negate, pad to the group's (CQ, col_pad)
-    class shape, dead slots -1, then the span kernel's wrapper."""
+    """The K4 add-back of merged rects ``p`` (St, Rd, Wt), or (Bt, St, Rd,
+    Wt) for a batch, as the JAX package forms it: shear by a reshape,
+    negate, pad to the group's (CQ, col_pad) class shape, dead slots -1,
+    then the span kernel's wrapper."""
     from ..ops.pallas.addback_resident import addback_resident, shear_reshape
 
-    St, _, Wt = p.shape
+    St, _, Wt = p.shape[-3:]
     cq, col_pad = vshape
     psh = shear_reshape(-p, col_pad)               # (St, Wt, col_pad)
-    psh2 = F.pad(psh.reshape(St * Wt, col_pad), (0, 0, 0, cq - St * Wt))
+    psh2 = F.pad(psh.reshape(*p.shape[:-3], St * Wt, col_pad),
+                 (0, 0, 0, cq - St * Wt))
     wv = _arange(Wt, p)[None, :]
     tcpf = torch.where(wv < twd[:, None], tcp, -1).reshape(-1)
     tcpf = F.pad(tcpf, (0, cq - St * Wt), value=-1)
@@ -721,13 +740,13 @@ def _addback_sheared_vmem(lvals, p, tcp, twd, vshape):
 
 
 def _addback_sheared_pallas(lvals, p, tcp, twd):
-    """The K5 add-back of merged rects ``p`` (St, Rd, Wt) as the JAX package
-    forms it: shear with a constant one-hot product, pad to power-of-two
-    panel and column counts with 1024 trailing zeros a row, then the span
-    kernel's wrapper."""
+    """The K5 add-back of merged rects ``p`` (St, Rd, Wt), or (Bt, St, Rd,
+    Wt) for a batch, as the JAX package forms it: shear with a constant
+    one-hot product, pad to power-of-two panel and column counts with 1024
+    trailing zeros a row, then the span kernel's wrapper."""
     from ..ops.pallas.panel_addback import panel_addback
 
-    St, Rd, Wt = p.shape
+    St, Rd, Wt = p.shape[-3:]
     col_pad = _colq(Rd)
     qq = _arange(col_pad, p)
     wv = _arange(Wt, p)
@@ -736,7 +755,7 @@ def _addback_sheared_pallas(lvals, p, tcp, twd):
     shift = (_arange(Rd, p)[None, None, :]
              == (qq[None, :, None] + wv[:, None, None])
              ).to(p.dtype)                          # (Wt, col_pad, Rd)
-    psh = torch.einsum("wqr,srw->swq", shift, -p)
+    psh = torch.einsum("wqr,...srw->...swq", shift, -p)
     # Power-of-two panel and column counts and 1024 trailing zeros:
     # the JAX package's K5 operand shapes (padded slots are dead).
     St_q = _pow2(St)
@@ -779,7 +798,8 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
     add-back modes update ``lvals`` in place. The merge is
     :func:`_merge_rects`, the add-back :func:`_apply_rects` (the
     distributed factorization sums the ranks' merged rects between the
-    two)."""
+    two). A batch (``lvals`` (Bt, N), ``u3`` (Bt, U, I, J)) runs every
+    step once for all systems."""
     St, Wt = tcp.shape
     p = _merge_rects(u3, meta, irows, ibelow, jrows, seg, St, Rd, Wt)
     return _apply_rects(lvals, p, tcp, tnr, twd, scratch, mode, vshape)
@@ -789,8 +809,10 @@ def _merge_rects(u3, meta, irows, ibelow, jrows, seg, St: int, Rd: int,
                  Wt: int) -> torch.Tensor:
     """Embed each update ``u3`` (U, I, J) into its target's (Rd, Wt) rect
     and merge the updates of one target (``seg`` indexes the level's
-    target table): the (St, Rd, Wt) rects, not negated."""
-    Ucnt, I, J = u3.shape
+    target table): the (St, Rd, Wt) rects, not negated; (Bt, St, Rd, Wt)
+    for a batch ``u3`` (Bt, U, I, J), the one-hot maps shared."""
+    Ucnt, I, J = u3.shape[-3:]
+    bt = math.prod(u3.shape[:-3])
     dt = u3.dtype
     ni, nj, his, c0s = (meta[:, 0], meta[:, 1], meta[:, 2], meta[:, 3])
     ii = _arange(I, u3)
@@ -806,19 +828,21 @@ def _merge_rects(u3, meta, irows, ibelow, jrows, seg, St: int, Rd: int,
         rowmap = (ric[:, :, None] == _arange(Rd, u3)).to(dt)  # (u, I, Rd)
         colmap = (rjc[:, :, None] == _arange(Wt, u3)).to(dt)  # (u, J, Wt)
         segmap = (sgc[None, :] == _arange(St, u3)[:, None]).to(dt)
-        d = torch.einsum("uij,ujw->uiw", u3c, colmap)
-        e = torch.einsum("uir,uiw->urw", rowmap, d)
-        return torch.einsum("su,urw->srw", segmap, e)
+        d = torch.einsum("...uij,ujw->...uiw", u3c, colmap)
+        e = torch.einsum("uir,...uiw->...urw", rowmap, d)
+        return torch.einsum("su,...urw->...srw", segmap, e)
 
-    # Bound the merge temps (rowmap (U,I,Rd) / d (U,I,Wt) / e (U,Rd,Wt))
-    # by merging U-chunks when the level is too big to merge at once.
-    per_u = max(I * Rd, I * Wt, Rd * Wt, I * J)
+    # Bound the merge temps (rowmap (U,I,Rd) / d (U,I,Wt) / e (U,Rd,Wt),
+    # the last two per system) by merging U-chunks when the level is too
+    # big to merge at once; the batch counts in the bound.
+    per_u = max(I * Rd, I * Wt, Rd * Wt, I * J) * bt
     uc = max(min(_MERGE_CHUNK_ELEMS // max(per_u, 1), Ucnt), 1)
     if uc < Ucnt:
-        p = torch.zeros((St, Rd, Wt), dtype=dt, device=u3.device)
+        p = torch.zeros(u3.shape[:-3] + (St, Rd, Wt), dtype=dt,
+                        device=u3.device)
         for u0 in range(0, Ucnt, uc):
             sl = slice(u0, u0 + uc)
-            p = p + merge_chunk(u3[sl], ri[sl], rj[sl], seg[sl])
+            p = p + merge_chunk(u3[..., sl, :, :], ri[sl], rj[sl], seg[sl])
     else:
         p = merge_chunk(u3, ri, rj, seg)
     return p
@@ -828,8 +852,11 @@ def _apply_rects(lvals, p, tcp, tnr, twd, scratch: int, mode: str,
                  vshape=None):
     """Subtract the merged rects ``p`` (St, Rd, Wt) from their panels'
     storage by ``mode`` ("delta", "vmem" or "pallas", as
-    :func:`_delta_scatter` describes); in place."""
-    St, Rd, Wt = p.shape
+    :func:`_delta_scatter` describes); in place. A batch (``lvals`` (Bt,
+    N), ``p`` (Bt, St, Rd, Wt)) in one pass: the delta route adds along the
+    last axis, so each system parks its masked elements on its own scratch
+    slot."""
+    St, Rd, Wt = p.shape[-3:]
     if mode == "vmem":
         if lvals.is_cuda:
             from ..ops.pallas.addback_resident import addback_rects
@@ -847,18 +874,20 @@ def _apply_rects(lvals, p, tcp, tnr, twd, scratch: int, mode: str,
     mask = ((wwt < twd[:, None, None]) & (rr >= wwt)
             & (rr < tnr[:, None, None]))
     pos = torch.where(mask, tcp[:, None, :] + rr - wwt, scratch)
-    return lvals.index_add_(0, pos.reshape(-1), (-p).reshape(-1))
+    return lvals.index_add_(-1, pos.reshape(-1),
+                            (-p).reshape(*lvals.shape[:-1], -1))
 
 
 def _nan_failed(lt: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     """Fill the factors of the batch members whose Cholesky failed with
     NaN, as ``jnp.linalg.cholesky`` returns for a matrix that is not
-    positive definite. (A panel that already holds a NaN, from an earlier
-    failed panel, also counts as failed here; the JAX package's CPU
-    Cholesky lets such a NaN propagate from its pivot on instead. The NaN
-    positions of the factor agree; finite values of such panels may
-    not.)"""
-    return torch.where((info != 0)[:, None, None],
+    positive definite; ``info`` has the leading shape of ``lt`` (panels, or
+    systems × panels), so a failure marks its own panel only. (A panel that
+    already holds a NaN, from an earlier failed panel, also counts as failed
+    here; the JAX package's CPU Cholesky lets such a NaN propagate from its
+    pivot on instead. The NaN positions of the factor agree; finite values
+    of such panels may not.)"""
+    return torch.where((info != 0)[..., None, None],
                        torch.full((), float("nan"), dtype=lt.dtype,
                                   device=lt.device), lt)
 
@@ -866,7 +895,8 @@ def _nan_failed(lt: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
 def _update_products(lvals, base, meta, irows, ibelow, jrows, jcp,
                      scratch: int, window: bool, kread=()) -> torch.Tensor:
     """The batched panel-outer-product updates ``L_d[I,:] @ L_d[J,:]ᵀ`` of
-    the given update tables: (U, I, J)."""
+    the given update tables: (U, I, J), or (Bt, U, I, J) for a batched
+    ``lvals``."""
     I = irows.shape[1]
     J = jrows.shape[1]
     if window:
@@ -874,9 +904,9 @@ def _update_products(lvals, base, meta, irows, ibelow, jrows, jcp,
     else:
         ga, gb, _ = _upd_positions(base, meta, irows, ibelow, jrows, jcp,
                                    scratch, build_scatter=False)
-        A = lvals[ga]                          # (U, I, W)
-        B = lvals[gb]                          # (U, J, W)
-    return torch.einsum("uiw,ujw->uij", A, B)
+        A = lvals[..., ga]                     # (U, I, W)
+        B = lvals[..., gb]                     # (U, J, W)
+    return torch.einsum("...uiw,...ujw->...uij", A, B)
 
 
 def _panel_reads(lvals, cp, r_tab, tv, R: int, tp, bp, window: bool,
@@ -885,31 +915,34 @@ def _panel_reads(lvals, cp, r_tab, tv, R: int, tp, bp, window: bool,
     windows or through the positions ``tp``/``bp``."""
     if window:
         return _panel_windows(lvals, cp, tv, r_tab, R, kread)
-    return lvals[tp], lvals[bp]
+    return lvals[..., tp], lvals[..., bp]
 
 
 def _panel_factors(T, Bp, tv):
     """Batched panel finalisation: the top triangles' Cholesky factors
     (non-finite entries zeroed, NaN for a failed panel) and the below
-    blocks solved against them."""
+    blocks solved against them. ``T`` (S, W, W) and ``Bp`` (S, R, W), or
+    with a leading batch axis (Bt, S, ...) factored as one batch."""
     eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
     # make padded columns well-posed: unit diagonal, zero elsewhere
     Tsym = T + torch.where(tv[:, :, None] & tv[:, None, :], 0.0, eye)
     Lt, info = torch.linalg.cholesky_ex(
-        Tsym + torch.triu(Tsym.transpose(1, 2), 1))
+        Tsym + torch.triu(Tsym.transpose(-2, -1), 1))
     Lt = _nan_failed(Lt, info)
     # solve Bp_new·Ltᵀ = Bp → Bp_new = Bp·Lt^{-T}
-    Bn = torch.linalg.solve_triangular(Lt, Bp.transpose(1, 2),
-                                       upper=False).transpose(1, 2)
+    Bn = torch.linalg.solve_triangular(Lt, Bp.transpose(-2, -1),
+                                       upper=False).transpose(-2, -1)
     return torch.where(torch.isfinite(Lt), torch.tril(Lt), 0.0), Bn
 
 
 def _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
                      scratch: int):
-    """Subtract the updates ``U`` (U, I, J) element by element; in place."""
+    """Subtract the updates ``U`` (U, I, J), or (Bt, U, I, J) from a batched
+    ``lvals``, element by element; in place."""
     _, _, sc = _upd_positions(base, meta, irows, ibelow, jrows, jcp,
                               scratch, build_gathers=False)
-    return lvals.index_add_(0, sc.reshape(-1), (-U).reshape(-1))
+    return lvals.index_add_(-1, sc.reshape(-1),
+                            (-U).reshape(*lvals.shape[:-1], -1))
 
 
 def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
@@ -920,7 +953,8 @@ def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
     ``window=True`` the reads take contiguous runs (through K3 where
     ``kread`` has a class) instead of per-element positions; ``smode``
     routes the update scatter ("element", "delta", "pallas", "vmem").
-    Updates ``lvals`` in place and returns it."""
+    Updates ``lvals`` ((N,), or (Bt, N) for a batch) in place and returns
+    it."""
     (base, meta, irows, ibelow, jrows, jcp, cp, r_tab, tv,
      tcp, tnr, twd, seg) = tabs
     # 1) batched panel-outer-product updates
@@ -933,13 +967,13 @@ def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
     else:
         _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
                          scratch)
-    lvals[scratch] = 0.0
+    lvals[..., scratch] = 0.0
 
     # 2) batched panel finalisation
     tp, bp = _panel_positions(cp, r_tab, tv, R, scratch)
     T, Bp = _panel_reads(lvals, cp, r_tab, tv, R, tp, bp, window, kread)
-    lvals[tp], lvals[bp] = _panel_factors(T, Bp, tv)
-    lvals[scratch] = 0.0
+    lvals[..., tp], lvals[..., bp] = _panel_factors(T, Bp, tv)
+    lvals[..., scratch] = 0.0
     return lvals
 
 
@@ -979,10 +1013,13 @@ def _win_pad(sched: SupernodalSchedule) -> int:
 
 def _init_lvals(sched: SupernodalSchedule, a_values: torch.Tensor,
                 pad: int = 1) -> torch.Tensor:
-    lvals = torch.zeros(sched.nnz_l + pad, dtype=torch.float32,
-                        device=a_values.device)
-    return lvals.index_add_(0, sched.a_src_pos,
-                            a_values[sched.a_vals_idx].to(torch.float32))
+    """A's lower values (nnz,), or (Bt, nnz), scattered into L's flat CSC
+    value array with ``pad`` zeros after it (the scratch slot first)."""
+    lvals = torch.zeros(a_values.shape[:-1] + (sched.nnz_l + pad,),
+                        dtype=torch.float32, device=a_values.device)
+    return lvals.index_add_(-1, sched.a_src_pos,
+                            a_values[..., sched.a_vals_idx].to(
+                                torch.float32))
 
 
 def _group_window(sched: SupernodalSchedule, gi: int, window) -> bool:
@@ -1078,7 +1115,15 @@ def factorize_supernodal(sched: SupernodalSchedule,
     product under :func:`matmul_precision`. Config
     ``supernodal_groups_per_program`` bounds XLA programs in the JAX
     package; PyTorch runs eagerly, so it is accepted and changes nothing
-    here."""
+    here.
+
+    ``a_values`` of shape (Bt, nnz) factors ``Bt`` matrices of the
+    schedule's pattern at once (``jax.vmap`` over the values in the JAX
+    package) and returns (Bt, nnz_l): every level runs once for the batch,
+    so the kernels launch as often as for one system."""
+    if a_values.ndim not in (1, 2):
+        raise ValueError(f"factorize_supernodal takes a_values (nnz,) or "
+                         f"(Bt, nnz), got {tuple(a_values.shape)}")
     window, mode, pad = _numeric_modes(sched)
     scratch = sched.nnz_l
     with matmul_precision():
@@ -1090,7 +1135,7 @@ def factorize_supernodal(sched: SupernodalSchedule,
                                sched.delta_rmax[gi], scratch, win, sm,
                                sched.vmem_shape[gi] if sm == "vmem" else None,
                                kr)
-    return lvals[: sched.nnz_l]
+    return lvals[..., : sched.nnz_l]
 
 
 def assemble_factor(a: CSR, lvals, sched: "SupernodalSchedule" = None) -> CSR:

@@ -17,6 +17,7 @@ from .interop import (
     to_scipy,
     to_torch_sparse,
 )
+from .reorder import apply_perm, bandwidth, permute_symmetric, rcm_permutation
 from .spgemm import mul_sparse, spgemm, spgemm_bounded, spgemm_dense
 from .spmm import mul_dense, mul_vector, spmm, spmm_auto, spmm_to_csr, spmv
 from .transpose import transpose
@@ -33,6 +34,10 @@ __all__ = [
     "from_scipy",
     "to_torch_sparse",
     "from_torch_sparse",
+    "rcm_permutation",
+    "permute_symmetric",
+    "apply_perm",
+    "bandwidth",
     "Dense",
     "DenseS",
     "spmm",

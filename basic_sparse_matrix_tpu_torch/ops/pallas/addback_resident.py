@@ -25,6 +25,14 @@ a CUDA tensor the rect entry of the same source reads ``p`` where it lies,
 so :func:`shear_reshape`, the negation and the pads to a class shape are
 never built; :func:`addback_rects_reference` composes them. ``LAUNCHES``
 counts the launches made through this module's wrappers (both entries).
+
+Batches: the rect entry takes a leading batch axis, ``lvals`` (Bt, N) and
+``p`` (Bt, St, Rd, Wt) with the tables shared (one pattern, ``Bt`` sets of
+values), in one launch; this is what the batched factorization launches.
+The span entry (:func:`addback_resident`, and ``panel_addback`` called by
+name) takes one system on the card; its plain version also takes a batch,
+``lvals`` (Bt, N) with ``rows`` (Bt, C, L), for the factorization's CPU
+forms.
 """
 
 from __future__ import annotations
@@ -41,10 +49,12 @@ LAUNCHES = 0
 
 def _check(lvals: torch.Tensor, rows: torch.Tensor,
            starts: torch.Tensor) -> None:
-    if lvals.ndim != 1 or rows.ndim != 2 or starts.ndim != 1 \
-            or starts.shape[0] != rows.shape[0]:
+    if lvals.ndim not in (1, 2) or rows.ndim != lvals.ndim + 1 \
+            or rows.shape[:-2] != lvals.shape[:-1] or starts.ndim != 1 \
+            or starts.shape[0] != rows.shape[-2]:
         raise ValueError(f"add-back takes lvals (N,), rows (C, L) and "
-                         f"starts (C,), got {tuple(lvals.shape)}, "
+                         f"starts (C,), or lvals (Bt, N) with rows (Bt, C, "
+                         f"L), got {tuple(lvals.shape)}, "
                          f"{tuple(rows.shape)}, {tuple(starts.shape)}")
     if lvals.dtype != torch.float32 or rows.dtype != torch.float32 \
             or starts.dtype != torch.int32:
@@ -58,13 +68,14 @@ def _check(lvals: torch.Tensor, rows: torch.Tensor,
 def addback_spans_reference(lvals: torch.Tensor, rows: torch.Tensor,
                             starts: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the add-back: ``index_add_`` of every live
-    row into its span of ``lvals`` (in place; returns ``lvals``)."""
+    row into its span of ``lvals`` (in place; returns ``lvals``). With a
+    batch, system ``b``'s rows go into ``lvals[b]`` at the shared starts."""
     _check(lvals, rows, starts)
     live = torch.nonzero(starts >= 0).reshape(-1)
     idx = starts[live].long()[:, None] + torch.arange(
-        rows.shape[1], device=lvals.device)
-    keep = idx < lvals.shape[0]
-    lvals.index_add_(0, idx[keep], rows[live][keep])
+        rows.shape[-1], device=lvals.device)
+    keep = idx < lvals.shape[-1]
+    lvals.index_add_(-1, idx[keep], rows[..., live, :][..., keep])
     return lvals
 
 
@@ -74,9 +85,15 @@ def addback_spans(lvals: torch.Tensor, rows: torch.Tensor,
     """Launch the span entry of the add-back kernel on CUDA tensors (in
     place; returns ``lvals``). With ``twd`` (P,) int32 the C slots are laid
     out (P, C / P) and slot (s, w) is dead from ``w = twd[s]`` on, whatever
-    ``starts`` holds there. The caller counts the launch."""
+    ``starts`` holds there. One system: a batched ``lvals`` raises (the
+    batched factorization launches the rect entry). The caller counts the
+    launch."""
     from ...runtime import cuda_kernels
 
+    if lvals.ndim != 1:
+        raise ValueError(f"{what}: the span entry takes one system on the "
+                         f"card, got lvals {tuple(lvals.shape)}; a batch "
+                         f"goes through addback_rects")
     _check(lvals, rows, starts)
     if not lvals.is_contiguous():
         raise ValueError("lvals must be contiguous: the add-back is in place")
@@ -119,7 +136,10 @@ def addback_resident(lvals: torch.Tensor, psh2: torch.Tensor,
     element).
 
     Args:
-      lvals: (N,) float32 factor values (updated in place and returned).
+      lvals: (N,) float32 factor values (updated in place and returned);
+        on the CPU also (Bt, N), a batch of one pattern's values, with
+        ``psh2`` (Bt, CQ, col_pad). The span entry on the card takes one
+        system and raises on a batch.
       psh2: (CQ, col_pad) float32, one sheared (already negated) delta row
         per flattened (panel, column) slot.
       tcpf: (CQ,) int32 storage start of each row, -1 for a dead slot.
@@ -135,30 +155,34 @@ def addback_resident(lvals: torch.Tensor, psh2: torch.Tensor,
 def shear_reshape(p_neg: torch.Tensor, col_pad: int) -> torch.Tensor:
     """Shear merged rects to storage-image rows by a reshape.
 
-    ``p_neg`` is (St, Rd, Wt) (already negated deltas). The storage image of
-    rect column ``w`` is ``p[s, q + w, w]`` for ``q in [0, col_pad)``.
-    Transposing to (St, Wt, Rd) and padding each (Wt, L) row-plane with Wt
-    extra elements makes the shift by w fall out of a row-major reshape:
+    ``p_neg`` is (..., St, Rd, Wt) (already negated deltas). The storage
+    image of rect column ``w`` is ``p[s, q + w, w]`` for ``q in [0,
+    col_pad)``. Transposing to (St, Wt, Rd) and padding each (Wt, L)
+    row-plane with Wt extra elements makes the shift by w fall out of a
+    row-major reshape:
 
         flat[s, w*L + r] = pT[s, w, r]          (L = col_pad + Wt)
         out[s, w, q]     = flat[s, w*(L+1) + q] = pT[s, w, q + w]
 
     For q < col_pad the offset ``q + w`` stays inside row ``w``, and pT is
     zero beyond the live Rd rows, so nothing wraps. Plain tensor ops, no
-    kernel. Returns (St, Wt, col_pad)."""
-    st, rd, wt = p_neg.shape
+    kernel. Returns (..., St, Wt, col_pad)."""
+    *lead, st, rd, wt = p_neg.shape
     L = col_pad + wt
-    pt = p_neg.transpose(1, 2)                          # (St, Wt, Rd)
+    pt = p_neg.transpose(-2, -1)                        # (St, Wt, Rd)
     pt = F.pad(pt, (0, L - rd))                         # zero rows past Rd
-    flat = F.pad(pt.reshape(st, wt * L), (0, wt))
-    return flat.reshape(st, wt, L + 1)[:, :, :col_pad]
+    flat = F.pad(pt.reshape(*lead, st, wt * L), (0, wt))
+    return flat.reshape(*lead, st, wt, L + 1)[..., :col_pad]
 
 
 def _check_rects(lvals, p, tcp, tnr, twd) -> None:
-    if lvals.ndim != 1 or p.ndim != 3 or tcp.shape != (p.shape[0], p.shape[2]) \
-            or tnr.shape != p.shape[:1] or twd.shape != p.shape[:1]:
-        raise ValueError(f"rect add-back takes lvals (N,), p (St, Rd, Wt), tcp "
-                         f"(St, Wt), tnr and twd (St,), got "
+    if lvals.ndim not in (1, 2) or p.ndim != lvals.ndim + 2 \
+            or p.shape[:-3] != lvals.shape[:-1] \
+            or tcp.shape != (p.shape[-3], p.shape[-1]) \
+            or tnr.shape != p.shape[-3:-2] or twd.shape != p.shape[-3:-2]:
+        raise ValueError(f"rect add-back takes lvals (N,) with p (St, Rd, "
+                         f"Wt), or lvals (Bt, N) with p (Bt, St, Rd, Wt), "
+                         f"tcp (St, Wt), tnr and twd (St,), got "
                          f"{tuple(lvals.shape)}, {tuple(p.shape)}, "
                          f"{tuple(tcp.shape)}, {tuple(tnr.shape)}, "
                          f"{tuple(twd.shape)}")
@@ -180,16 +204,18 @@ def addback_rects_reference(lvals: torch.Tensor, p: torch.Tensor,
     """Plain PyTorch version of the rect entry (in place; returns
     ``lvals``): mask the rects to their live trapezoids, shear and negate
     them (:func:`shear_reshape`) and add the rows with
-    :func:`addback_resident_reference`."""
+    :func:`addback_resident_reference`; a batch (``lvals`` (Bt, N), ``p``
+    (Bt, St, Rd, Wt)) in the same ops with a leading axis."""
     _check_rects(lvals, p, tcp, tnr, twd)
-    st, rd, wt = p.shape
+    st, rd, wt = p.shape[-3:]
     rr = torch.arange(rd, device=p.device)[None, :, None]
     ww = torch.arange(wt, device=p.device)[None, None, :]
     live = (ww < twd[:, None, None]) & (rr >= ww) & (rr < tnr[:, None, None])
     psh = shear_reshape(-torch.where(live, p, 0.0), rd)
     tcpf = torch.where(ww[0] < twd[:, None], tcp, -1)
-    return addback_resident_reference(lvals, psh.reshape(st * wt, rd),
-                                      tcpf.reshape(-1).to(torch.int32))
+    return addback_resident_reference(
+        lvals, psh.reshape(*p.shape[:-3], st * wt, rd),
+        tcpf.reshape(-1).to(torch.int32))
 
 
 def launch_rects(lvals: torch.Tensor, p: torch.Tensor, tcp: torch.Tensor,
@@ -203,13 +229,15 @@ def launch_rects(lvals: torch.Tensor, p: torch.Tensor, tcp: torch.Tensor,
     if not lvals.is_contiguous():
         raise ValueError("lvals must be contiguous: the add-back is in place")
     p, tcp, tnr, twd = (t.contiguous() for t in (p, tcp, tnr, twd))
+    bt = lvals.shape[0] if lvals.ndim == 2 else 1
     lib = cuda_kernels.load()
     with torch.cuda.device(lvals.device):
         stream = torch.cuda.current_stream(lvals.device).cuda_stream
         status = lib.bsm_addback_rects(
-            lvals.data_ptr(), int(lvals.shape[0]), p.data_ptr(),
-            tcp.data_ptr(), tnr.data_ptr(), twd.data_ptr(),
-            *(int(d) for d in p.shape), int(tcp.dtype == torch.int64), stream)
+            lvals.data_ptr(), int(lvals.shape[-1]), p.data_ptr(),
+            tcp.data_ptr(), tnr.data_ptr(), twd.data_ptr(), bt,
+            *(int(d) for d in p.shape[-3:]), int(tcp.dtype == torch.int64),
+            stream)
     cuda_kernels.check_launch(lib, status, what)
     return lvals
 
@@ -229,8 +257,10 @@ def addback_rects(lvals: torch.Tensor, p: torch.Tensor, tcp: torch.Tensor,
     and their float32 order is not fixed.
 
     Args:
-      lvals: (N,) float32 factor values (updated in place and returned).
-      p: (St, Rd, Wt) float32 merged rects, not negated.
+      lvals: (N,) float32 factor values (updated in place and returned), or
+        (Bt, N): a batch of one pattern's values, one launch for all.
+      p: (St, Rd, Wt) float32 merged rects, not negated; (Bt, St, Rd, Wt)
+        with a batched ``lvals``.
       tcp: (St, Wt) int32 or int64 storage start of each panel column.
       tnr: (St,) rect rows of each panel; twd: (St,) its live columns
         (both of ``tcp``'s dtype).

@@ -13,8 +13,11 @@ span entry of ``csrc/addback.cu``, which tells the dead columns itself (or
 it raises).
 In place, as K4; returns ``lvals``. :func:`panel_addback_rects` is the same
 update taken from the unsheared rects (the rect entry of that source, see
-``addback_resident.addback_rects``). ``LAUNCHES`` counts the launches made
-through this module's wrappers.
+``addback_resident.addback_rects``), and takes a leading batch axis (one
+pattern, ``Bt`` sets of values) in one launch. :func:`panel_addback` (the
+span entry) takes one system on the card; its plain version also takes a
+batch, for the factorization's CPU forms. ``LAUNCHES`` counts the launches
+made through this module's wrappers.
 """
 
 from __future__ import annotations
@@ -34,19 +37,21 @@ LAUNCHES = 0
 
 
 def _check(psh: torch.Tensor, tcp: torch.Tensor, twd: torch.Tensor) -> None:
-    if psh.ndim != 3 or tcp.shape != psh.shape[:2] \
-            or twd.shape != psh.shape[:1]:
-        raise ValueError(f"panel_addback takes psh (St, Wt, L), tcp (St, Wt) "
-                         f"and twd (St,), got {tuple(psh.shape)}, "
-                         f"{tuple(tcp.shape)}, {tuple(twd.shape)}")
+    if psh.ndim not in (3, 4) or tcp.shape != psh.shape[-3:-1] \
+            or twd.shape != psh.shape[-3:-2]:
+        raise ValueError(f"panel_addback takes psh (St, Wt, L) or (Bt, St, "
+                         f"Wt, L), tcp (St, Wt) and twd (St,), got "
+                         f"{tuple(psh.shape)}, {tuple(tcp.shape)}, "
+                         f"{tuple(twd.shape)}")
 
 
 def _flatten(psh: torch.Tensor, tcp: torch.Tensor, twd: torch.Tensor):
     _check(psh, tcp, twd)
-    wv = torch.arange(psh.shape[1], device=psh.device)
+    wv = torch.arange(psh.shape[-2], device=psh.device)
     starts = torch.where(wv[None, :] < twd[:, None], tcp,
                          torch.full_like(tcp, -1))
-    return psh.reshape(-1, psh.shape[2]), starts.reshape(-1).to(torch.int32)
+    return (psh.reshape(*psh.shape[:-3], -1, psh.shape[-1]),
+            starts.reshape(-1).to(torch.int32))
 
 
 def panel_addback_reference(lvals: torch.Tensor, psh: torch.Tensor,
@@ -68,7 +73,9 @@ def panel_addback(lvals: torch.Tensor, psh: torch.Tensor, tcp: torch.Tensor,
     element).
 
     Args:
-      lvals: (N,) float32 factor values (updated in place and returned).
+      lvals: (N,) float32 factor values (updated in place and returned);
+        on the CPU also (Bt, N) with ``psh`` (Bt, St, Wt, col_len). The
+        span entry on the card takes one system and raises on a batch.
       psh: (St, Wt, col_len) float32 sheared deltas.
       tcp: (St, Wt) int32 column storage starts.
       twd: (St,) int32 live column count per panel.
@@ -78,7 +85,7 @@ def panel_addback(lvals: torch.Tensor, psh: torch.Tensor, tcp: torch.Tensor,
     global LAUNCHES
     _check(psh, tcp, twd)
     # the kernel tells the dead columns from twd: no starts array is built
-    out = addback_spans(lvals, psh.reshape(-1, psh.shape[2]),
+    out = addback_spans(lvals, psh.reshape(-1, psh.shape[-1]),
                         tcp.reshape(-1).to(torch.int32), "panel_addback",
                         twd.to(torch.int32))
     LAUNCHES += 1
@@ -91,7 +98,8 @@ def panel_addback_rects(lvals: torch.Tensor, p: torch.Tensor,
     """``addback_resident.addback_rects`` counted as a K5 launch: the one-hot
     shear, the negation and :func:`panel_addback` in one kernel launch on a
     CUDA tensor (or it raises), ``addback_rects_reference`` on a CPU one.
-    Same arguments, in place; returns ``lvals``."""
+    Same arguments (a leading batch axis on ``lvals`` and ``p`` included),
+    in place; returns ``lvals``."""
     if not lvals.is_cuda:
         return addback_rects_reference(lvals, p, tcp, tnr, twd)
     global LAUNCHES

@@ -22,9 +22,18 @@ the same rung as the JAX package on the CPU.
 
 Result dtypes follow the JAX package: ``spmm``/``spmv`` and the ELL rung
 return the RHS's dtype; the dense rung and the kernels return float32.
+
+Batches (``jax.vmap`` in the JAX package): ``spmm_auto``/``mul_dense`` with
+``b`` of shape (Bt, K, N) fold the batch into the columns, so the (K, Bt·N)
+product takes one pass down the ladder (the kernels at full width), and
+unfold the result to (Bt, M, N). ``spmm(a, b, values=V)`` with ``V`` (Bt,
+nnz) multiplies ``Bt`` matrices of ``a``'s pattern: the gather rung with a
+batch axis, the rung JAX's ``vmap`` over the values takes.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,15 +51,50 @@ def _as_tensor(x, a: CSR) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=a.device)
 
 
-def spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
+# Bytes of gathered rows one chunk of the batched-values gather may hold.
+VALUES_CHUNK_BYTES = 1 << 30
+
+
+def spmm(a: CSR, b: torch.Tensor,
+         values: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather-based SpMM: ``out[i, :] = Σ_k A[i,k]·B[k, :]``: gather the rows
     of ``B`` by column index, scale by the stored values, and add them into
-    their output rows."""
+    their output rows.
+
+    ``values`` (Bt, nnz) replaces ``a.values`` by ``Bt`` value sets of the
+    same pattern: ``b`` (K, N), or (Bt, K, N) one per system, gives (Bt, M,
+    N), in entry chunks of at most ``VALUES_CHUNK_BYTES`` of gathered rows
+    for the whole batch."""
+    if values is not None:
+        return _spmm_values(a, b, values)
     cdt = compute_dtype(b.dtype)
     gathered = b.to(cdt).index_select(0, a.indices) \
         * a.values.to(cdt).unsqueeze(1)
     out = torch.zeros((a.rows, b.shape[1]), dtype=cdt, device=b.device)
     out.index_add_(0, a.row_ids(), gathered)
+    return out.to(b.dtype)
+
+
+def _spmm_values(a: CSR, b: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    check(values.ndim == 2 and values.shape[1] == a.stored
+          and b.ndim in (2, 3) and b.shape[-2] == a.cols
+          and (b.ndim == 2 or b.shape[0] == values.shape[0]),
+          IncorrectDimensions,
+          f"spmm with values: {a.dims}, {a.stored} stored, values "
+          f"{tuple(values.shape)}, b {tuple(b.shape)}")
+    bt, n = values.shape[0], b.shape[-1]
+    cdt = compute_dtype(b.dtype)
+    bc, vals = b.to(cdt), values.to(cdt)
+    rows = a.row_ids()
+    out = torch.zeros((bt, a.rows, n), dtype=cdt, device=b.device)
+    per_entry = bt * n * out.element_size()
+    chunk = max(1, VALUES_CHUNK_BYTES // max(per_entry, 1))
+    for e0 in range(0, a.stored, chunk):
+        cols = a.indices[e0: e0 + chunk]
+        gathered = bc.index_select(-2, cols) \
+            * vals[:, e0: e0 + chunk, None]             # (Bt, e, N)
+        out.index_add_(1, rows[e0: e0 + chunk], gathered)
     return out.to(b.dtype)
 
 
@@ -65,9 +109,9 @@ def spmv(a: CSR, x: torch.Tensor) -> torch.Tensor:
 
 def mul_dense(a: CSR, b) -> torch.Tensor:
     """Checked SpMM entry point — reference ``mul_dense`` including its
-    ``IncorrectDimensions`` error."""
+    ``IncorrectDimensions`` error. ``b`` (K, N), or a batch (Bt, K, N)."""
     b = _as_tensor(b, a)
-    check(b.ndim == 2 and a.cols == b.shape[0], IncorrectDimensions,
+    check(b.ndim in (2, 3) and a.cols == b.shape[-2], IncorrectDimensions,
           f"mul_dense: {a.dims} × {tuple(b.shape)}")
     return spmm_auto(a, b)
 
@@ -87,7 +131,14 @@ def spmm_to_csr(a: CSR, b) -> CSR:
 
 
 def spmm_auto(a: CSR, b: torch.Tensor) -> torch.Tensor:
-    """Density-dispatched SpMM (the ladder in the module docstring)."""
+    """Density-dispatched SpMM (the ladder in the module docstring). A batch
+    ``b`` (Bt, K, N) is folded into the columns, (K, Bt·N), multiplied in
+    one pass down the ladder and unfolded to (Bt, M, N)."""
+    if b.ndim == 3:
+        bt, k, n = b.shape
+        folded = b.permute(1, 0, 2).reshape(k, bt * n)
+        return spmm_auto(a, folded).reshape(-1, bt, n).transpose(0, 1) \
+            .contiguous()
     cfg = get_config()
     if (a.get_density() >= cfg.dense_dispatch_density
             and 4 * a.rows * a.cols <= cfg.dense_dispatch_max_bytes):

@@ -170,10 +170,16 @@ def checkpointed_factorize(sched, a_values, path: str,
     ``every``-level chunks on ``a_values``' device and snapshots the factor
     values (scratch slot included) between chunks. Levels are those of the
     schedule handed in, so a state file belongs to the package whose
-    schedule wrote it. Returns the factor's CSC values on the host."""
+    schedule wrote it. Returns the factor's CSC values on the host. One
+    system: a batch of values (2-D ``a_values``) raises ``ValueError``
+    (checkpoint each system on its own)."""
     from ..models.sparse_cholesky import factor_levels, initial_lvals
 
     a_values = torch.as_tensor(a_values)
+    if a_values.ndim != 1:
+        raise ValueError(f"checkpointed_factorize takes one system's values "
+                         f"(nnz,), got {tuple(a_values.shape)}; factor a "
+                         f"batch with sparse_cholesky.factorize")
     nlev = sched.n_levels
     start = 0
     if os.path.exists(path):

@@ -60,12 +60,12 @@ _SIGNATURES = {
     "bsm_spmm_stream_sliced": [_P] * 5 + [_I] * 4 + [_LL] * 2 + [_P],
     # A, out, pieces, iters, blocks, stream
     "bsm_l2_gather_probe": [_P, _P, _LL, _I, _I, _P],
-    # lvals, n, stf, crq, l_pad, out, stream
-    "bsm_runs_read": [_P, _LL, _P, _I, _I, _P, _P],
+    # lvals, n, stf, crq, l_pad, bt, out, stream
+    "bsm_runs_read": [_P, _LL, _P, _I, _I, _I, _P, _P],
     # lvals, n, rows, starts, twd (or null), wt, nslots, len, stream
     "bsm_addback": [_P, _LL, _P, _P, _P, _I, _I, _I, _P],
-    # lvals, n, p, tcp, tnr, twd, St, Rd, Wt, idx64, stream
-    "bsm_addback_rects": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lvals, n, p, tcp, tnr, twd, Bt, St, Rd, Wt, idx64, stream
+    "bsm_addback_rects": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ii, kk, vv, B, C, entries, rows, lanes, vec, stream
     "bsm_entry_fma": [_P] * 5 + [_LL, _I, _I, _I, _P],
 }

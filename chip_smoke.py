@@ -8,7 +8,8 @@ Lanczos, Chebyshev, dense Cholesky and TSQR; and the sparse × sparse algebra
 (``a + b``, ``a - b``, ``a * s``, ``spgemm``, ``matmul_sparse``), the file
 round trips and the per-entry FMA probe (K6); and the distributed layer
 (``parallel/``) on logical shards of the one card and over NCCL at world
-size 1.
+size 1; and batched values (many numeric systems of one pattern through
+one schedule: factorizations, triangular solves, SpMM).
 
 Usage (from the repository root, on a machine with a CUDA GPU and nvcc):
 
@@ -205,6 +206,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     above each part's start are logged; every result must lie on the card.
     The K3, K4 and K5 entries of ``kernels`` carry (a)'s counts as
     ``launches_parallel``.
+
+21. Batched values (one pattern, one symbolic schedule, many numeric
+    systems; the port's counterpart of ``jax.vmap`` over the values): (a)
+    ``factorize_supernodal`` on phase 6's schedule of the 33³ ND Laplacian
+    with Bt = 8 value sets ``A + c_b·I`` (``c_b`` from the seed) at once,
+    the counts set to 0 right before and read right after: K3 and the
+    add-back's rect entry must launch exactly as often as for one system
+    (measured on the first of the 8 single calls that follow); each
+    system's batched factor within ``1e-4·max|ref|`` of its single-system
+    factor (atomics); then the batched triangular solves on phase 6's
+    schedules (``schedule_values`` through ``csr_value_order``), 8
+    right-hand sides a system, each system under phase 6's error limits
+    and against its own batch-of-one solve; times of the batch against 8
+    single calls, peak memory above the part's start; (b) the same on
+    phase 11's 10⁶-node tree (scatter-list, Bt = 4); (c) run after phase
+    19 while the 1M-row operand is resident: ``mul_dense`` with ``b`` of
+    shape (4, 1M, 128), which must launch K2 once (the batch folded into
+    512 columns), each block against its own ``mul_dense``; (d)
+    ``spmm(a, b, values=V)`` with 8 value sets of the 33³ Laplacian and 8
+    right-hand sides against ``spmm`` on each system's CSR. K3 and the
+    rect entry with a batch axis (Bt = 8) at phase 7's operands against
+    their plain versions and their one-system launches, timed as phase 7
+    times them (host-paced turns and device only); the K3, K4 and K5 rows
+    of ``kernels`` carry them under ``batched`` (``bt``, ``ms``,
+    ``device_ms``, ``plain_ms``, ``bound_ms`` of 8 systems' bytes,
+    ``launches`` of (a)'s batched factorization).
 
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
@@ -1294,8 +1321,9 @@ def banded_tiers(dev) -> None:
     use_config()
 
 
-def scatter_tier(dev) -> None:
-    """Phase 11: the scatter-list tier on a 10⁶-node tree Laplacian."""
+def scatter_tier(dev):
+    """Phase 11: the scatter-list tier on a 10⁶-node tree Laplacian;
+    returns the solver and the matrix (phase 21(b) reuses them)."""
     from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
 
     (n, r, c, v), build = timed(lambda: tree_laplacian(TREE_N, SEED + 5))
@@ -1323,6 +1351,7 @@ def scatter_tier(dev) -> None:
     solve_and_check(solver, a, x_true, b8, "scatter")
     log_peak("scatter", base)
     use_config()
+    return solver, a
 
 
 def iterative_path(dev) -> None:
@@ -2417,6 +2446,327 @@ def direct_parallel_phase(dev) -> dict:
     return out["supernodal"]["launches"]
 
 
+
+# ---- 21. batched values: one schedule, many numeric systems ----------------
+BATCH = 8                       # (a) and (d): systems of one pattern
+BATCH_TREE = 4                  # (b)
+BATCH_RHS = 4                   # (c): right-hand-side blocks
+BATCH_RHS_COLS = 128
+BATCH_FACTOR_ATOL_OF_MAX = 1e-4  # batched vs one-system factor (atomics)
+
+
+def shifted_values(a, bt: int, seed: int) -> torch.Tensor:
+    """``bt`` value sets ``A + c_b·I`` of ``a``'s pattern on its device,
+    ``c_b`` uniform in [0, 1) from the seed: one pattern, every system
+    SPD. (bt, nnz) float32."""
+    rng = np.random.default_rng(seed)
+    c = torch.as_tensor(rng.random(bt).astype(np.float32), device=a.device)
+    eye = (a.indices.long() == a.row_ids().long()).float()
+    return a.values.float()[None] + c[:, None] * eye[None]
+
+
+def with_values(a, values):
+    """The CSR of ``a``'s pattern holding ``values``."""
+    from basic_sparse_matrix_tpu_torch import CSR
+
+    return CSR(a.indptr, a.indices, values, a.rows, a.cols)
+
+
+def batched_solve_values(solver, lv):
+    """The batched triangular solves' values of factors ``lv`` (Bt, nnz_l)
+    in the schedule's CSC order, on the solver's schedules (built once from
+    its own factor, whose pattern they share): (forward, backward) value
+    pairs and ``l.transpose()``."""
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+
+    rows, cols = st.factor_pattern(solver.sched)
+    l = solver._l
+    lt = l.transpose()
+    fwd = st.schedule_values(solver._fwd,
+                             lv[:, st.csr_value_order(rows, cols, l)])
+    bwd = st.schedule_values(solver._bwd,
+                             lv[:, st.csr_value_order(cols, rows, lt)])
+    return fwd, bwd, lt
+
+
+def batched_solves(solver, lt, vf, vb, b):
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+
+    y = st.solve_triangular_sparse(solver._l, b, solver._fwd, values=vf)
+    return st.solve_triangular_sparse(lt, y, solver._bwd, lower=False,
+                                      values=vb)
+
+
+def batched_factor_and_solve(label: str, solver, ap, factorize, bt: int,
+                             seed: int) -> dict:
+    """Factor ``bt`` shifted value sets of ``ap``'s pattern on the solver's
+    schedule at once (launch counts set to 0 right before, read right
+    after) and one by one; hold each batched factor to its own one-system
+    factor; solve 8 right-hand sides a system with the batched triangular
+    solves and check each system's errors; time the batch against the
+    single calls."""
+    sched = solver.sched
+    vals = shifted_values(ap, bt, seed)
+    base = fresh_peak()
+    zero_launches()
+    lv, t_batch = timed(lambda: factorize(sched, vals))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    on_card(f"{label} batched factor", lv)
+    singles, t_single = [], []
+    zero_launches()
+    for b in range(bt):
+        one, t = timed(lambda: factorize(sched, vals[b]))
+        singles.append(one)
+        t_single.append(t)
+        if b == 0:
+            one_launches = read_launches()
+    if lv.shape != (bt, sched.nnz_l):
+        raise AssertionError(f"{label}: batched factor {tuple(lv.shape)}")
+    errs = [close_of_max(f"{label} system {b}: batched factor vs its own",
+                         lv[b], singles[b], BATCH_FACTOR_ATOL_OF_MAX)
+            for b in range(bt)]
+    del singles
+    log(f"  {label}: numeric, {bt} systems at once {t_batch * 1e3:.1f} ms, "
+        f"{bt} single calls {sum(t_single) * 1e3:.1f} ms ("
+        + " / ".join(f"{t * 1e3:.1f}" for t in t_single)
+        + f"); launches of the batch {launches}, of one system "
+        f"{one_launches}; peak {peak / 2**30:.3f} GiB above the "
+        f"{base / 2**30:.3f} GiB held before")
+    kern = ("runs_read", "addback_resident", "panel_addback")
+    if [launches[k] for k in kern] != [one_launches[k] for k in kern]:
+        raise AssertionError(f"{label}: the batch launched {launches}, one "
+                             f"system {one_launches}")
+
+    (vf, vb, lt), t_vals = timed(lambda: batched_solve_values(solver, lv))
+    gen = torch.Generator(device=ap.device).manual_seed(seed + 1)
+    x_true = torch.randn((bt, ap.rows, 8), generator=gen,
+                         dtype=torch.float64, device=ap.device)
+    mats = [with_values(ap, vals[b]) for b in range(bt)]
+    rhs = torch.stack([matvec64(mats[b], x_true[b]).float()
+                       for b in range(bt)])
+    runs = [timed(lambda: batched_solves(solver, lt, vf, vb, rhs))
+            for _ in range(2)]
+    x = runs[-1][0]
+    on_card(f"{label} batched solve", x)
+    for b in range(bt):
+        check_solution(f"{label} system {b}, batched solve, 8 rhs", mats[b],
+                       x[b], x_true[b], rhs[b])
+    one_ms = []
+    for b in range(bt):
+        xb, t = timed(lambda: batched_solves(
+            solver, lt, tuple(v[b: b + 1] for v in vf),
+            tuple(v[b: b + 1] for v in vb), rhs[b: b + 1]))
+        compare(f"{label} system {b}: batched solve vs its own", x[b],
+                xb[0])
+        one_ms.append(t * 1e3)
+    log(f"  {label}: solve values mapped in {t_vals:.3f} s (host order + "
+        f"device gather); solve of {bt} × 8 rhs "
+        + " / ".join(f"{t * 1e3:.1f}" for _, t in runs)
+        + f" ms, {bt} single solves (a batch of one each) "
+        f"{sum(one_ms):.1f} ms (" + " / ".join(f"{t:.1f}" for t in one_ms)
+        + ") host clock (synchronised)")
+    return {"numeric_ms": t_batch * 1e3,
+            "single_numeric_ms": sum(t_single) * 1e3,
+            "solve_ms": [t * 1e3 for _, t in runs],
+            "single_solve_ms": sum(one_ms), "peak_gib": peak / 2**30,
+            "launches": {k: launches[k] for k in kern},
+            "max_abs_err": max(errs)}
+
+
+def batched_kernels_vs_plain(solver, gen) -> dict:
+    """K3 and the add-back's rect entry with a batch axis (Bt = 8) at phase
+    7's operands, each against its plain version on the card, timed in
+    turns plain-kernel-kernel-plain and device only; bound of 8 systems'
+    bytes. Returns ``{name: batched entry}``."""
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops.pallas import addback_resident as k4
+    from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback as k5
+    from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read as k3
+    from basic_sparse_matrix_tpu_torch.probes.addback_probe import (
+        seeded_rects)
+    from basic_sparse_matrix_tpu_torch.probes.entry_fma_probe import (
+        device_time_ms)
+
+    sched = solver.sched
+    scratch = sched.nnz_l
+    one = padded_factor(solver)
+    scale = torch.linspace(1.0, 2.0, BATCH, device=one.device)[:, None]
+    lvals = (one[None] * scale).contiguous()
+    tab = sn._TABLE_INDEX
+    out = {}
+
+    def slots(gi):
+        _, u, w = sched.tabs[gi][tab["upd_base"]].shape
+        return u * w
+    cands = [gi for gi in range(sched.n_groups)
+             if slots(gi) <= sn._KREAD_CR_CAP]
+    gi = max(cands, key=lambda g: slots(g) * sn._kread_lpad(
+        sched.tabs[g][tab["upd_irows"]].shape[2]))
+    base = sched.tabs[gi][tab["upd_base"]][0].long()
+    lp = sn._kread_lpad(int(sched.tabs[gi][tab["upd_irows"]].shape[2]))
+    stf = torch.where(base != scratch, base, -1).reshape(-1).to(torch.int32)
+    got = k3.runs_read(lvals, stf, lp)
+    torch.cuda.synchronize()
+    if not torch.equal(got, k3.runs_read_reference(lvals, stf, lp)):
+        raise AssertionError("batched runs_read differs from its plain "
+                             "version")
+    if not torch.equal(got[3], k3.runs_read(lvals[3], stf, lp)):
+        raise AssertionError("batched runs_read differs from its one-system "
+                             "launch")
+    del got
+    ms, plain_ms, four = time_pair(lambda: k3.runs_read(lvals, stf, lp),
+                                   lambda: k3.runs_read_reference(
+                                       lvals, stf, lp), 20)
+    dev_ms = min(device_time_ms(lambda: k3.runs_read(lvals, stf, lp), 50)
+                 for _ in range(2))
+    n_live = int((stf >= 0).sum())
+    out["runs_read"] = {
+        "bt": BATCH, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        **bound(4 * (stf.numel() + BATCH * (
+            min(n_live * lp, lvals.shape[1]) + stf.numel() * lp)), 0.0)}
+    log(f"  runs_read, {BATCH} systems at once (group {gi}, {stf.numel()} "
+        f"runs of l_pad {lp}): equal to the plain version and to the "
+        f"one-system launch; a call {four[1]:.4f} / {four[2]:.4f} ms, plain "
+        f"{four[0]:.4f} / {four[3]:.4f} ms, device only {dev_ms:.4f} ms; "
+        f"bound {out['runs_read']['bound_ms']:.4f} ms")
+
+    modes = [sn._group_delta(sched, g, "auto") for g in range(sched.n_groups)]
+    g4 = max((g for g in range(sched.n_groups) if modes[g] == "vmem"),
+             key=lambda g: sched.tabs[g][tab["tgt_cp"]][0].numel())
+    g5 = next(g for g in range(sched.n_groups) if modes[g] == "pallas")
+    for name, launch, g in (("addback_resident", k4.addback_rects, g4),
+                            ("panel_addback", k5.panel_addback_rects, g5)):
+        tcp, tnr, twd = (sched.tabs[g][tab[t]][0].long()
+                         for t in ("tgt_cp", "tgt_nrows", "tgt_w"))
+        p = torch.stack([seeded_rects(tcp, tnr, twd, sched.delta_rmax[g], gen)
+                         for _ in range(BATCH)])
+        live = int((p != 0).sum())
+        timing = addback_vs_plain(
+            f"{launch.__name__}, {BATCH} systems at once (group {g}, p "
+            f"{tuple(p.shape)}, {live} live elements)", lvals,
+            lambda lv: launch(lv, p, tcp, tnr, twd),
+            lambda lv: k4.addback_rects_reference(lv, p, tcp, tnr, twd))
+        one_sys = launch(lvals[5].clone(), p[5], tcp, tnr, twd)
+        both = launch(lvals.clone(), p, tcp, tnr, twd)[5]
+        torch.cuda.synchronize()
+        err = float((both - one_sys).abs().max())
+        if err > ADDBACK_TOL * max(1.0, float(one_sys.abs().max())):
+            raise AssertionError(f"{name}: batched rect entry differs from "
+                                 f"its one-system launch by {err:.3e}")
+        touched = sum(min(int((p[b] != 0).sum()), lvals.shape[1])
+                      for b in range(BATCH))
+        tables = tcp.numel() + 2 * tnr.numel()
+        out[name] = {"bt": BATCH, "ms": timing["ms"],
+                     "device_ms": timing["device_ms"],
+                     "plain_ms": timing["plain_ms"],
+                     **bound(4 * (live + tables + 2 * touched), float(live)),
+                     "max_abs_err": timing["max_abs_err"]}
+        del p, one_sys, both
+    return out
+
+
+def batched_rhs_spmm(a_st, dev) -> dict:
+    """21(c): ``mul_dense`` on phase 4's 1M × 1M × 32 operand with ``b`` of
+    shape (4, 1M, 128): one K2 launch on the folded (1M, 512) RHS, each
+    block against its own ``mul_dense``."""
+    from basic_sparse_matrix_tpu_torch import mul_dense
+    from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
+    from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    b = torch.randn((BATCH_RHS, a_st.cols, BATCH_RHS_COLS), generator=gen,
+                    device=dev)
+    base = fresh_peak()
+    mul_dense(a_st, b)                      # warm: the stream plan at 512
+    zero_launches()
+    out, t_batch = timed(lambda: mul_dense(a_st, b))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    on_card("batched mul_dense", out)
+    if (launches["spmm_stream"], launches["spmm_bsr"]) != (1, 0):
+        raise AssertionError(f"batched mul_dense launched {launches}, "
+                             f"expected K2 once")
+    single_ms = []
+    for i in range(BATCH_RHS):
+        mul_dense(a_st, b[i])               # warm: the plan at 128
+        ref, t = timed(lambda: mul_dense(a_st, b[i]))
+        single_ms.append(t * 1e3)
+        compare(f"(c) block {i} of the batched mul_dense vs its own", out[i],
+                ref)
+    log(f"(c) mul_dense, 1M x 1M x 32, b {tuple(b.shape)}: "
+        f"{t_batch * 1e3:.2f} ms at once (K2 {launches['spmm_stream']}, K1 "
+        f"{launches['spmm_bsr']}), {BATCH_RHS} single calls "
+        f"{sum(single_ms):.2f} ms (" + " / ".join(
+            f"{t:.2f}" for t in single_ms) + ") host clock (synchronised); "
+        f"peak {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} held")
+    return {"ms": t_batch * 1e3, "single_ms": sum(single_ms),
+            "k2_launches": launches["spmm_stream"], "peak_gib": peak / 2**30}
+
+
+def batched_values_spmm(ap) -> dict:
+    """21(d): ``spmm(a, b, values=V)`` with 8 value sets of the 33³
+    Laplacian's pattern and 8 right-hand sides against ``spmm`` on each
+    system's own CSR."""
+    import importlib
+
+    spmm_mod = importlib.import_module("basic_sparse_matrix_tpu_torch.ops.spmm")
+    vals = shifted_values(ap, BATCH, SEED + 24)
+    gen = torch.Generator(device=ap.device).manual_seed(SEED + 24)
+    b = torch.randn((ap.cols, 8), generator=gen, device=ap.device)
+    spmm_mod.spmm(ap, b, values=vals)
+    out, t_batch = timed(lambda: spmm_mod.spmm(ap, b, values=vals))
+    on_card("spmm(values=...)", out)
+    mats = [with_values(ap, vals[i]) for i in range(BATCH)]
+    refs, t_single = timed(lambda: [spmm_mod.spmm(m, b) for m in mats])
+    for i in range(BATCH):
+        compare(f"(d) system {i} of spmm(values=...) vs its own spmm",
+                out[i], refs[i])
+    log(f"(d) spmm(values=...), {BATCH} value sets of the {SOLVER_K}³ "
+        f"Laplacian "
+        f"({ap.stored} stored) x 8 rhs: {t_batch * 1e3:.3f} ms at once, "
+        f"{BATCH} single calls {t_single * 1e3:.3f} ms host clock "
+        f"(synchronised)")
+    return {"ms": t_batch * 1e3, "single_ms": t_single * 1e3}
+
+
+def batched_values_phase(dev, solver, tree, gen) -> dict:
+    """Phase 21 (a), (b), (d) and the batched kernels against their plain
+    versions; (c) ran in the 1M-row operand's window. Returns the
+    summary."""
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops.reorder import permute_symmetric
+
+    log(f"batched values (phase 21): one schedule, many numeric systems:")
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)    # the default device
+    ap = permute_symmetric(a, solver.perm)
+    use_config(ordering="nd")
+    out = {}
+    t0 = time.perf_counter()
+    out["supernodal"] = batched_factor_and_solve(
+        f"(a) supernodal {SOLVER_K}³ ND, Bt {BATCH}", solver, ap,
+        sn.factorize_supernodal, BATCH, SEED + 22)
+    log(f"  [(a): {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    out["kernels"] = batched_kernels_vs_plain(solver, gen)
+    log(f"  [batched kernels: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    out["spmm_values"] = batched_values_spmm(ap)
+    del a, ap
+    torch.cuda.empty_cache()
+    tree_solver, tree_a = tree
+    use_config(ordering="rcm")
+    out["scatter"] = batched_factor_and_solve(
+        f"(b) scatter-list tree n {tree_a.rows}, Bt {BATCH_TREE}",
+        tree_solver, permute_symmetric(tree_a, tree_solver.perm),
+        sc.factorize, BATCH_TREE, SEED + 23)
+    log(f"  [(b), (d): {time.perf_counter() - t0:.1f} s]")
+    use_config()
+    return out
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -2582,6 +2932,11 @@ def main() -> None:
     parallel_phase(dev, a_st, b_st, ref_st)
     torch.cuda.empty_cache()
     log(f"  [parallel_phase: {time.perf_counter() - t0:.1f} s]")
+    # ---- 21(c). a batch of right-hand sides, while the operand is resident
+    t0 = time.perf_counter()
+    batched_rhs = batched_rhs_spmm(a_st, dev)
+    torch.cuda.empty_cache()
+    log(f"  [batched_rhs_spmm: {time.perf_counter() - t0:.1f} s]")
     # the rung loops leave a and b bound to the 1M-row operand (≈ 2.8 GiB)
     del a_dense, b_dense, a_bsr, b_bsr, a_st, b_st, bsr, plan, a, b, ref_st
     torch.cuda.empty_cache()
@@ -2597,6 +2952,7 @@ def main() -> None:
     for k in solver_kernels_vs_plain(main["solver"], gen):
         kernels.append({"route": "cuda",
                         "launches": main["launches"][k["name"]], **k})
+    solver6 = main["solver"]    # phase 21(a) factors on its schedule
     del main
 
     # ---- 8. per-formulation factors, card vs CPU ------------------------
@@ -2606,11 +2962,12 @@ def main() -> None:
 
     # ---- 9-13. the rest of models/; 14-17. the sparse × sparse path and
     # the file round trips -----------------------------------------------
+    returned = {}
     for phase in (serving_path, banded_tiers, scatter_tier, iterative_path,
                   card_vs_cpu_k14, ss_add_path, ss_mul_dense_path,
                   ss_mul_planned_path, matmul_sparse_path):
         t0 = time.perf_counter()
-        phase(dev)
+        returned[phase.__name__] = phase(dev)
         torch.cuda.empty_cache()
         log(f"  [{phase.__name__}: {time.perf_counter() - t0:.1f} s]")
 
@@ -2629,6 +2986,24 @@ def main() -> None:
     for k in kernels:
         if k["name"] in ("runs_read", "addback_resident", "panel_addback"):
             k["launches_parallel"] = direct_launches[k["name"]]
+
+    # ---- 21. batched values ----------------------------------------------
+    t0 = time.perf_counter()
+    batched = batched_values_phase(dev, solver6, returned["scatter_tier"],
+                                   gen)
+    del solver6, returned
+    torch.cuda.empty_cache()
+    log(f"  [batched_values_phase: {time.perf_counter() - t0:.1f} s]")
+    # K3 and the rect entry with a batch axis; launches are those of 21(a)'s
+    # batched factorization (one system's count)
+    for k in kernels:
+        if k["name"] in batched["kernels"]:
+            k["batched"] = {
+                **batched["kernels"][k["name"]],
+                "launches": batched["supernodal"]["launches"][k["name"]]}
+    batched.pop("kernels")
+    batched["spmm_rhs"] = batched_rhs
+    log("phase 21 summary: " + json.dumps(batched, default=float))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "

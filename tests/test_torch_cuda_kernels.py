@@ -7,7 +7,7 @@ the end and overlapping add-back spans for the supernodal kernels, every
 destination alignment and class width of the add-back's span entry and
 ragged, masked and misaligned rects for its rect entry; ragged
 entry counts, widths that are no multiple of 4 or 32 and one hot row for
-the per-entry FMA).
+the per-entry FMA; K3 and the rect entry with a batch axis).
 
 These need a CUDA device and nvcc; without a device every test skips. On a
 GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -685,6 +685,76 @@ def test_supernodal_kernels_reject_what_they_do_not_take(cuda):
                          torch.zeros(2, **i32))
 
 
+
+@pytest.mark.parametrize("n,crq,l_pad,bt", [
+    (1000, 300, 37, 3), (5000, 1024, 128, 8), (3000, 77, 2048, 2),
+    (10, 9, 1, 5)])
+def test_runs_read_kernel_batched_matches_plain(cuda, n, crq, l_pad, bt):
+    """K3 with a batch axis, one launch: equal to the plain version and to
+    a loop of one-system launches; a run near the end of a system reads
+    zeros there, never the next system's head."""
+    rng = np.random.default_rng(n + crq + bt)
+    lv = torch.as_tensor(rng.standard_normal((bt, n)).astype(np.float32),
+                         device=cuda)
+    stf = rng.integers(0, n, crq).astype(np.int32)
+    stf[::5] = -1
+    stf[1::7] = n - 1
+    stf = torch.as_tensor(stf, device=cuda)
+    before = k3.LAUNCHES
+    out = k3.runs_read(lv, stf, l_pad)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == before + 1
+    assert out.shape == (bt, crq, l_pad)
+    assert torch.equal(out, k3.runs_read_reference(lv, stf, l_pad))
+    assert torch.equal(out, torch.stack([k3.runs_read(lv[i], stf, l_pad)
+                                         for i in range(bt)]))
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("bt,st,rd,wt,n", [
+    (3, 37, 130, 5, 9000), (8, 9, 300, 33, 20000), (2, 2, 1000, 32, 3000),
+    (5, 3, 129, 70, 12000)])
+def test_addback_rects_kernel_batched_matches_plain(cuda, bt, st, rd, wt, n,
+                                                    idx):
+    """The rect entry with a batch axis, one launch through each wrapper:
+    against its batched plain version, system by system against its
+    one-system launch, runs cut by the end of each system's ``lvals``
+    dropped there (an odd ``n`` misaligns every system after the first)."""
+    rng = np.random.default_rng(bt * st + rd)
+    n += 1
+    p = torch.as_tensor(rng.standard_normal((bt, st, rd, wt)).astype(
+        np.float32), device=cuda)
+    tcp = torch.as_tensor(rng.integers(0, n, (st, wt)), device=cuda).to(idx)
+    tnr = torch.as_tensor(rng.integers(0, rd + 1, st), device=cuda).to(idx)
+    twd = torch.as_tensor(rng.integers(0, wt + 1, st), device=cuda).to(idx)
+    tnr[0], twd[0] = rd, wt
+    tcp[0, 0] = n - 3
+    lv0 = torch.as_tensor(rng.standard_normal((bt, n)).astype(np.float32),
+                          device=cuda)
+    ref = k4.addback_rects_reference(lv0.clone(), p, tcp, tnr, twd)
+    for mod, fn in ((k4, k4.addback_rects), (k5, k5.panel_addback_rects)):
+        before = mod.LAUNCHES
+        out = fn(lv0.clone(), p, tcp, tnr, twd)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 1
+        _tight(out, ref)
+        for i in range(bt):
+            _tight(out[i], fn(lv0[i].clone(), p[i], tcp, tnr, twd))
+
+
+def test_span_entry_takes_one_system_on_the_card(cuda):
+    """The span entries are not on the batched path: a batch raises."""
+    i32 = dict(dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one system"):
+        k4.addback_resident(torch.zeros((2, 100), device=cuda),
+                            torch.zeros((2, 4, 8), device=cuda),
+                            torch.zeros(4, **i32))
+    with pytest.raises(ValueError, match="one system"):
+        k5.panel_addback(torch.zeros((2, 100), device=cuda),
+                         torch.zeros((2, 2, 3, 8), device=cuda),
+                         torch.zeros((2, 3), **i32), torch.zeros(2, **i32))
+
+
 def _lap3(k):
     n = k ** 3
     idx = np.arange(n).reshape(k, k, k)
@@ -733,6 +803,56 @@ def test_supernodal_factor_on_card_matches_cpu(cuda, gather, scatter):
     assert (got[2] > 0) == ("pallas" in modes)
     _close(lv[str(cuda)], lv["cpu"].to(cuda))
 
+
+
+@pytest.mark.parametrize("gather,scatter", [
+    ("kernel", "auto"), ("kernel", "vmem"), ("kernel", "pallas"),
+    ("window", "delta"), ("element", "element"),
+])
+def test_batched_supernodal_on_card_launches_as_one_system(cuda, gather,
+                                                           scatter):
+    """A batch of 4 value sets of the ND-ordered 10³ Laplacian on the card
+    launches K3 and the add-back exactly as often as one system, and each
+    system's factor matches its single-system factor on the card and the
+    batched factor on the CPU (plain versions)."""
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops import reorder
+
+    n, r, c, v = _lap3(10)
+    old = cfgmod.get_config()
+    cfgmod.set_config(dataclasses.replace(
+        old, supernodal_gather=gather, supernodal_scatter=scatter))
+    try:
+        lv, counts = {}, {}
+        for dev in ("cpu", cuda):
+            a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+            a = reorder.permute_symmetric(a, reorder.nd_permutation(a))
+            sched = sn.analyze_supernodal(a, relax=8)
+            rows = torch.repeat_interleave(
+                torch.arange(n, device=a.device), a.indptr.diff())
+            eye = (a.indices == rows).float()
+            vals = torch.stack([a.values * (1 + 0.25 * b) + 0.5 * b * eye
+                                for b in range(4)])
+            for name, arg in (("batch", vals), ("one", vals[0])):
+                before = (k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES)
+                lv[str(dev), name] = sn.factorize_supernodal(sched, arg)
+                counts[str(dev), name] = (
+                    k3.LAUNCHES - before[0], k4.LAUNCHES - before[1],
+                    k5.LAUNCHES - before[2])
+            singles = [sn.factorize_supernodal(sched, vals[b])
+                       for b in range(4)]
+            lv[str(dev), "singles"] = torch.stack(singles)
+        torch.cuda.synchronize()
+    finally:
+        cfgmod.set_config(old)
+    dev = str(cuda)
+    assert counts[dev, "batch"] == counts[dev, "one"]
+    assert (counts[dev, "one"][0] > 0) == (gather == "kernel")
+    assert (counts[dev, "one"][1] + counts[dev, "one"][2] > 0) == (
+        scatter in ("auto", "vmem", "pallas"))
+    assert lv[dev, "batch"].shape == (4, sched.nnz_l)
+    _close(lv[dev, "batch"], lv[dev, "singles"])
+    _close(lv[dev, "batch"], lv["cpu", "batch"].to(cuda))
 
 # ---- K6: per-entry FMA ------------------------------------------------------
 def _entries(rng, entries, rows, lanes, dev, hot=None):
