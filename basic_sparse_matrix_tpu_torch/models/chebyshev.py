@@ -13,17 +13,21 @@ Lanczos (``models/lanczos.py``). With θ = (λ_max+λ_min)/2,
 
 The scalars are float32 tensors on the device, as in the JAX package; the
 fixed iteration count is a Python loop that reads nothing back until the
-final residual.
+final residual. On the card the whole loop is one captured CUDA graph,
+replayed on every later solve with the same setup, iteration count and
+shape (the JAX package's ``fori_loop`` under ``jax.jit``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.csr import CSR
+from ..runtime import graphs
 from ..utils.errors import NonSquareMatrix, check
 from .lanczos import LanczosSetup, _matvec, eigen_values_lanczos
 
@@ -44,9 +48,18 @@ def spectral_bounds(a: CSR, k: int = 32, *,
 
 def _cheby_loop(setup: LanczosSetup, b: torch.Tensor, lam_min: float,
                 lam_max: float, iters: int):
+    """``iters`` iterations; on the card one captured graph per (setup,
+    iters, shape), the bounds in its static device scalars
+    (``runtime/graphs.py``)."""
     f32 = dict(dtype=torch.float32, device=b.device)
-    lam_min = torch.tensor(lam_min, **f32)
-    lam_max = torch.tensor(lam_max, **f32)
+    return graphs.run(setup, ("chebyshev", iters),
+                      functools.partial(_cheby_iterate, setup, iters), b,
+                      torch.tensor(lam_min, **f32),
+                      torch.tensor(lam_max, **f32))
+
+
+def _cheby_iterate(setup: LanczosSetup, iters: int, b: torch.Tensor,
+                   lam_min: torch.Tensor, lam_max: torch.Tensor):
     theta = (lam_max + lam_min) / 2.0
     delta = ((lam_max - lam_min) / 2.0).clamp_min(1e-30)
     sigma1 = theta / delta

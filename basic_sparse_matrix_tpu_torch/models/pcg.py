@@ -10,14 +10,19 @@ port's own parts:
 * its application: two level-scheduled triangular solves per iteration
   (``models/sparse_triangular``).
 
-The JAX package's ``lax.while_loop`` is a Python loop here with the same
-stopping rule (``‖r‖/‖b‖ > tol`` in float32 and ``it < max_iters``):
-reading ‖r‖ synchronises the host with the device once per iteration.
+The JAX package's ``lax.while_loop`` keeps its stopping rule
+(``‖r‖/‖b‖ > tol`` in float32 and ``it < max_iters``). On the CPU it is a
+Python loop that reads ‖r‖ every iteration (:func:`_pcg_loop`). On the card
+it runs in chunks of ``CHUNK`` iterations, each a captured CUDA graph that
+evaluates the rule on the device and masks the steps past the end; the
+host reads one flag per chunk (:func:`_pcg_chunked`). Both take the same
+iterations to the same result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -25,6 +30,7 @@ import torch
 
 from ..ops.csr import CSR
 from ..ops.ell import ELL
+from ..runtime import graphs
 from ..utils.errors import NonSquareMatrix, check
 from . import sparse_cholesky as sc
 from .sparse_triangular import (
@@ -82,28 +88,84 @@ class PCGSetup:
         return solve_triangular_sparse(None, y, self.bwd, lower=False)
 
 
+def _pcg_start(setup: PCGSetup, b: torch.Tensor):
+    """The loop's carry before the first iteration: (x, r, p, rz) and the
+    clamped ‖b‖."""
+    z = setup.apply_m_inv(b)
+    return (torch.zeros_like(b), b, z, torch.dot(b, z),
+            torch.linalg.norm(b).clamp_min(1e-30))
+
+
+def _pcg_step(setup: PCGSetup, x, r, p, rz):
+    """One CG iteration: the new (x, r, p, rz)."""
+    ap = setup.matvec(p)
+    alpha = rz / torch.dot(p, ap).clamp_min(1e-30)
+    x = x + alpha * p
+    r = r - alpha * ap
+    z = setup.apply_m_inv(r)
+    rz_new = torch.dot(r, z)
+    beta = rz_new / rz.clamp_min(1e-30)
+    return x, r, z + beta * p, rz_new
+
+
 def _pcg_loop(setup: PCGSetup, b: torch.Tensor, tol: float,
               max_iters: int):
-    x = torch.zeros_like(b)
-    r = b
-    z = setup.apply_m_inv(r)
-    p = z
-    rz = torch.dot(r, z)
-    bnorm = torch.linalg.norm(b).clamp_min(1e-30)
+    """The eager loop: the host reads ‖r‖ every iteration."""
+    x, r, p, rz, bnorm = _pcg_start(setup, b)
     it = 0
     # tol compares in float32, as the JAX package's jnp.float32(tol)
     while it < max_iters and bool(torch.linalg.norm(r) / bnorm > tol):
-        ap = setup.matvec(p)
-        alpha = rz / torch.dot(p, ap).clamp_min(1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = setup.apply_m_inv(r)
-        rz_new = torch.dot(r, z)
-        beta = rz_new / rz.clamp_min(1e-30)
-        p = z + beta * p
-        rz = rz_new
+        x, r, p, rz = _pcg_step(setup, x, r, p, rz)
         it += 1
     return x, it, torch.linalg.norm(r) / bnorm
+
+
+# Iterations in one captured chunk of the card's loop. On the 33³
+# Laplacian (PERF.md) a chunk's copy-in and flag read cost too
+# little to resolve, while each masked step past the end costs a whole
+# iteration: 4 was the fastest of 4, 8 and 16.
+CHUNK = 4
+
+
+def _pcg_active(r, bnorm, it, tol, max_iters) -> torch.Tensor:
+    """The while loop's condition on the device: ``it < max_iters`` and
+    ‖r‖/‖b‖ > tol in float32 (``tol`` a float32 tensor)."""
+    return (it < max_iters) & (torch.linalg.norm(r) / bnorm > tol)
+
+
+def _pcg_chunk(setup: PCGSetup, x, r, p, rz, it, bnorm, tol, max_iters):
+    """``CHUNK`` iterations of the while loop with its condition on the
+    device: each computes the step and keeps it only where the condition
+    holds, so a chunk that runs past the end repeats masked steps and
+    changes nothing. Returns the carry, ``it``, and the condition for the
+    next iteration."""
+    for _ in range(CHUNK):
+        act = _pcg_active(r, bnorm, it, tol, max_iters)
+        step = _pcg_step(setup, x, r, p, rz)
+        x, r, p, rz = (torch.where(act, new, old)
+                       for new, old in zip(step, (x, r, p, rz)))
+        it = it + act.to(it.dtype)
+    return x, r, p, rz, it, _pcg_active(r, bnorm, it, tol, max_iters)
+
+
+def _pcg_chunked(setup: PCGSetup, b: torch.Tensor, tol: float,
+                 max_iters: int):
+    """The loop in chunks of ``CHUNK`` iterations, each one captured graph
+    on the card (``runtime/graphs.py``; eager on the CPU); the host reads
+    one flag per chunk. ``tol`` and ``max_iters`` are device scalars, so
+    changing them replays the same graph. The iterations and the result
+    are those of :func:`_pcg_loop`."""
+    x, r, p, rz, bnorm = _pcg_start(setup, b)
+    it = torch.zeros((), dtype=torch.int64, device=b.device)
+    limits = (torch.tensor(tol, dtype=torch.float32, device=b.device),
+              torch.tensor(max_iters, dtype=torch.int64, device=b.device))
+    chunk = functools.partial(_pcg_chunk, setup)
+    go = True
+    while go:
+        x, r, p, rz, it, act = graphs.run(setup, ("pcg", CHUNK), chunk,
+                                          x, r, p, rz, it, bnorm, *limits)
+        go = bool(act)
+    return x, int(it), torch.linalg.norm(r) / bnorm
 
 
 def pcg_solve(a: CSR, b, *, tol: float = 1e-6, max_iters: int = 1000,
@@ -118,5 +180,6 @@ def pcg_solve(a: CSR, b, *, tol: float = 1e-6, max_iters: int = 1000,
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(np.asarray(b))
     b = b.to(device=setup.a.device, dtype=torch.float32)
-    x, it, res = _pcg_loop(setup, b, tol, max_iters)
+    loop = _pcg_chunked if b.is_cuda else _pcg_loop
+    x, it, res = loop(setup, b, tol, max_iters)
     return x, it, float(res)

@@ -27,18 +27,24 @@ the solves take them beside ``b`` of shape (Bt, n[, k]): every level is the
 same four operations for the whole batch. :func:`factor_pattern` and
 :func:`csr_value_order` map a factorization's CSC value order to ``l``'s
 CSR order, so factor → solve needs no host round trip per system.
+
+On the card the level loop runs as one captured CUDA graph per (schedule,
+operand shapes), replayed on every later solve (``runtime/graphs.py``: the
+counterpart of the JAX package's ``jax.jit``); on the CPU it runs as it
+is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.csr import CSR, to_tensor
-from ..runtime import symbolic
+from ..runtime import graphs, symbolic
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 
 
@@ -230,7 +236,9 @@ def solve_triangular_sparse(l: CSR, b,
     ``values``, from :func:`schedule_values` on (Bt, nnz) value sets of
     ``l``'s pattern, solves ``Bt`` systems at once: ``b`` is then (Bt,
     n[, k]) and so is the result (``jax.vmap`` over stacked schedules in
-    the JAX package)."""
+    the JAX package). On the card the solve replays a captured graph
+    (``runtime/graphs.py``); ``b`` and the batched values are copied into
+    its static buffers, and the result is a fresh tensor."""
     if sched is None:
         sched = build_schedule(l, lower=lower)
     if not isinstance(b, torch.Tensor):
@@ -248,8 +256,18 @@ def solve_triangular_sparse(l: CSR, b,
               f"{tuple(inv_diag.shape)} vs b {tuple(b.shape)}")
     check(b.shape[d] == sched.n, IncorrectDimensions,
           f"triangular solve: n={sched.n} vs b {tuple(b.shape)}")
-    if not sched.lower:
-        # Mirrored problem: reverse the rows of b and of the solution.
-        return torch.flip(_solve_scheduled(sched, torch.flip(b, (d,)), vals,
-                                           inv_diag), (d,))
-    return _solve_scheduled(sched, b, vals, inv_diag)
+    operands = (b,) if values is None else (b, vals, inv_diag)
+    return graphs.run(sched, "solve", functools.partial(_solve, sched),
+                      *operands)
+
+
+def _solve(sched: TriangularSchedule, b: torch.Tensor,
+           vals: Optional[torch.Tensor] = None,
+           inv_diag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The level loop in the schedule's orientation: the mirrored upper
+    problem reverses the rows of ``b`` and of the solution."""
+    if sched.lower:
+        return _solve_scheduled(sched, b, vals, inv_diag)
+    d = 0 if vals is None else 1
+    return torch.flip(_solve_scheduled(sched, torch.flip(b, (d,)), vals,
+                                       inv_diag), (d,))

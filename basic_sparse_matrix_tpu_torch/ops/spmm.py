@@ -137,7 +137,7 @@ def spmm_auto(a: CSR, b: torch.Tensor) -> torch.Tensor:
     if b.ndim == 3:
         bt, k, n = b.shape
         folded = b.permute(1, 0, 2).reshape(k, bt * n)
-        return spmm_auto(a, folded).reshape(-1, bt, n).transpose(0, 1) \
+        return spmm_auto(a, folded).reshape(a.rows, bt, n).transpose(0, 1) \
             .contiguous()
     cfg = get_config()
     if (a.get_density() >= cfg.dense_dispatch_density

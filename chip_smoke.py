@@ -233,6 +233,29 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     ``device_ms``, ``plain_ms``, ``bound_ms`` of 8 systems' bytes,
     ``launches`` of (a)'s batched factorization).
 
+22. Compiled loops (``runtime/graphs.py``: each loop captured once as a
+    CUDA graph per owner and operand shape, then replayed), each graphed
+    path against its eager loop on the same card in the same run: the 33³
+    ND supernodal solves at 1 and 8 rhs (phase 6's solver, on fresh
+    copies of its schedules so that the first call captures), the batched
+    8 × 8 solves of 21(a), the tree scatter solves of phase 11 (each solve
+    as ``DirectSolver.solve`` runs it, permutations included), PCG at tol
+    1e-6 on phase 12's input in chunks of ``pcg.CHUNK`` iterations (the
+    iteration count must equal the eager loop's, float64 residual <=
+    1e-5), its replays at chunks of 4, 8 and 16 at tol 1e-6 and 1e-5 (the
+    measurement behind ``pcg.CHUNK``; every count equal to the host-read
+    loop's), and Chebyshev(200) with the analytic bounds (float64 residual
+    <= 1e-4). The eager loop is the same entry point under
+    ``eager_loops()`` (PCG's: ``_pcg_loop``, the loop before graphs). Each replay within ``1e-5·max|ref|`` of the eager result and
+    under its path's limits. Per path: eager and replay ms (min / median /
+    max of 5, in turns), the first call (warm-up, capture, replay) in s,
+    the memory the graphs keep (static buffers + private pool) and the
+    first call's peak, then (last, since a profiled window slows later
+    launch-bound walls) one replay under ``torch.profiler``: its device
+    operations (the launches the graph holds) and the device busy share.
+    Phase 6 and the other solver phases call the graphed solves too: the
+    first solve of each shape there captures.
+
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
 once, each output written once; for data-dependent work what this run's data
@@ -604,7 +627,8 @@ def solver_main_path(dev) -> dict:
         f"{(solver._fwd.nbytes + solver._bwd.nbytes) / 2**20:.1f} MiB")
     for name, times in solve_ms.items():
         log(f"  solve {name}: " + " / ".join(f"{ms:.2f}" for ms in times)
-            + " ms host clock (synchronised)")
+            + " ms host clock (synchronised; the first captures the "
+            "solve graphs, the others replay them)")
     log(f"  peak device memory {peak / 2**30:.3f} GiB")
     levels = {m: 0 for m in ("vmem", "pallas")}
     for gi in range(sched.n_groups):
@@ -1230,7 +1254,9 @@ def solve_and_check(solver, a, x_true, b8, label: str) -> None:
             ms.append(sec * 1e3)
         check_solution(f"{label} solve {name}", a, x, x_true, b)
         log(f"  {label} solve {name}: " + " / ".join(
-            f"{t:.2f}" for t in ms) + " ms host clock (synchronised)")
+            f"{t:.2f}" for t in ms) + " ms host clock (synchronised; "
+            "where the tier has level loops the first captures their "
+            "graphs)")
 
 
 def serving_path(dev) -> None:
@@ -1377,8 +1403,9 @@ def iterative_path(dev) -> None:
     (x, it, res), again = timed(lambda: op.solve_cg(b, tol=1e-6))
     true_res = float(torch.linalg.norm(b.double() - matvec64(a, x))
                      / torch.linalg.norm(b.double()))
-    log(f"  solve_cg: first call (IC(0) set-up included) {first:.3f} s, "
-        f"again {again * 1e3:.1f} ms for {it} iterations = "
+    log(f"  solve_cg: first call (IC(0) set-up and graph captures "
+        f"included) {first:.3f} s, again (replays) {again * 1e3:.1f} ms "
+        f"for {it} iterations = "
         f"{again * 1e3 / max(it, 1):.2f} ms per iteration; reported "
         f"residual {res:.3e}, float64 residual {true_res:.3e} (limit "
         f"{PCG_RES_MAX:g})")
@@ -1410,13 +1437,15 @@ def iterative_path(dev) -> None:
     true_res = float(torch.linalg.norm(b.double() - matvec64(a, x))
                      / torch.linalg.norm(b.double()))
     log(f"  chebyshev_solve, analytic bounds, 200 iterations: "
-        f"{t_ch * 1e3:.1f} ms, reported residual {res:.3e}, float64 "
+        f"{t_ch * 1e3:.1f} ms (the first call: graph capture included), "
+        f"reported residual {res:.3e}, float64 "
         f"residual {true_res:.3e} (limit {CHEBY_RES_MAX:g})")
     if not true_res <= CHEBY_RES_MAX:
         raise AssertionError("chebyshev_solve: residual over the limit")
     (x, res), t_ch = timed(lambda: op.solve_chebyshev(b, iters=200))
     log(f"  op.solve_chebyshev, Lanczos bounds, 200 iterations: "
-        f"{t_ch * 1e3:.1f} ms, residual {res:.3e} (not asserted)")
+        f"{t_ch * 1e3:.1f} ms (a replay: the bounds are operands), "
+        f"residual {res:.3e} (not asserted)")
 
 
 def card_vs_cpu_k14(dev) -> None:
@@ -2566,7 +2595,9 @@ def batched_factor_and_solve(label: str, solver, ap, factorize, bt: int,
         + f" ms, {bt} single solves (a batch of one each) "
         f"{sum(one_ms):.1f} ms (" + " / ".join(f"{t:.1f}" for t in one_ms)
         + ") host clock (synchronised)")
-    return {"numeric_ms": t_batch * 1e3,
+    return {"operands": {"vf": vf, "vb": vb, "rhs": rhs, "x_true": x_true,
+                         "mats": mats},
+            "numeric_ms": t_batch * 1e3,
             "single_numeric_ms": sum(t_single) * 1e3,
             "solve_ms": [t * 1e3 for _, t in runs],
             "single_solve_ms": sum(one_ms), "peak_gib": peak / 2**30,
@@ -2766,6 +2797,314 @@ def batched_values_phase(dev, solver, tree, gen) -> dict:
     log(f"  [(b), (d): {time.perf_counter() - t0:.1f} s]")
     use_config()
     return out
+
+# ---- the compiled loops (phase 22) ------------------------------------------
+GRAPH_RUNS = 5                  # eager runs and replays, in turns, per path
+GRAPH_ATOL_OF_MAX = 1e-5        # replay vs eager loop (index_add_ atomics)
+PCG_CHUNKS = (4, 8, 16)         # the chunk sizes measured; pcg.CHUNK is one
+PCG_TOLS = (1e-6, 1e-5)         # the second only times the chunk sizes
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """The loops as they ran before they were captured: ``graphs.run``
+    calls its function directly, so every level loop, PCG and Chebyshev
+    runs op by op (the eager reference of phase 22)."""
+    from basic_sparse_matrix_tpu_torch.runtime import graphs
+
+    run = graphs.run
+    graphs.run = lambda owner, tag, fn, *operands: fn(*operands)
+    try:
+        yield
+    finally:
+        graphs.run = run
+
+
+def eagerly(fn):
+    def call():
+        with eager_loops():
+            return fn()
+    return call
+
+
+def ms_stats(seconds) -> dict:
+    ms = sorted(t * 1e3 for t in seconds)
+    return {"min": ms[0], "median": float(np.median(ms)), "max": ms[-1]}
+
+
+def fmt_ms(st: dict) -> str:
+    return f"{st['min']:.2f} / {st['median']:.2f} / {st['max']:.2f}"
+
+
+def device_busy(fn) -> dict:
+    """One ``fn()`` under ``torch.profiler`` (device activity only): the
+    device operations it ran (kernels, copies, fills: for a replay, the
+    launches its graphs hold) and their union of busy time over the
+    synchronised host window of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return {"device_ops": len(spans), "busy_share": busy * 1e-6 / wall,
+            "profiled_ms": wall * 1e3}
+
+
+def graph_vs_eager(name: str, graphed, check, eager=None) -> dict:
+    """The first graphed call (warm-up, capture, one replay) timed alone,
+    with the peak above its start and the memory its graphs keep (static
+    buffers and private pool: reserved bytes after ``empty_cache``); then
+    ``GRAPH_RUNS`` eager calls (``eager``, by default ``graphed`` under
+    ``eager_loops``) and replays in turns, the last replay held to the
+    last eager result within ``GRAPH_ATOL_OF_MAX·max|ref|`` and passed to
+    ``check``. Both return the tensor to hold."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, first = timed(graphed)
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() - reserved
+    t_eager, t_graph = [], []
+    for _ in range(GRAPH_RUNS):
+        ref, t = timed(eager or eagerly(graphed))
+        t_eager.append(t)
+        out, t = timed(graphed)
+        t_graph.append(t)
+    err = close_of_max(f"{name}: replay vs eager loop", out, ref,
+                       GRAPH_ATOL_OF_MAX)
+    check(out)
+    row = {"eager_ms": ms_stats(t_eager), "replay_ms": ms_stats(t_graph),
+           "first_call_s": first, "graph_gib": kept / 2**30,
+           "first_call_peak_gib": peak / 2**30, "max_abs_err": err,
+           "profile": graphed}
+    log(f"  {name}: eager {fmt_ms(row['eager_ms'])} ms, replay "
+        f"{fmt_ms(row['replay_ms'])} ms (min / median / max of "
+        f"{GRAPH_RUNS}, in turns, synchronised host clock); first call "
+        f"(warm-up + capture + replay) {first:.3f} s; graphs keep "
+        f"{kept / 2**30:.4f} GiB (static buffers + private pool), "
+        f"first-call peak {peak / 2**30:.4f} GiB above its start")
+    return row
+
+
+def triangular_pair(fwd, bwd, values=None):
+    """Forward + backward solves on the schedules ``fwd``/``bwd`` through
+    ``solve_triangular_sparse``; ``values`` = batched (forward, backward)
+    schedule values."""
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+
+    vf, vb = values or (None, None)
+
+    def solve(b):
+        y = st.solve_triangular_sparse(None, b, fwd, values=vf)
+        return st.solve_triangular_sparse(None, y, bwd, lower=False,
+                                          values=vb)
+    return solve
+
+
+def direct_graphs(label: str, solver, a, x_true, b8, out: dict):
+    """A direct solver's solve as ``DirectSolver.solve`` runs it (permute,
+    forward, backward, permute back) at 1 and 8 rhs, on fresh copies of
+    its schedules (new graph owners, so the first call captures), graphed
+    against eager and checked against phase 6's limits. Returns the
+    copies."""
+    import copy
+
+    from basic_sparse_matrix_tpu_torch.ops.reorder import apply_perm
+
+    fwd, bwd = copy.copy(solver._fwd), copy.copy(solver._bwd)
+    pair = triangular_pair(fwd, bwd)
+
+    def solve(b):
+        if solver.perm is None:
+            return pair(b)
+        return apply_perm(pair(apply_perm(b, solver.perm)), solver.perm,
+                          inverse=True)
+    for name, b in (("1 rhs", b8[:, :1].contiguous()), ("8 rhs", b8)):
+        key = f"{label} {name}"
+        out[key] = graph_vs_eager(
+            key, lambda b=b: solve(b),
+            lambda x, b=b: check_solution(f"{key} replay", a, x, x_true, b))
+        out[key]["levels"] = fwd.n_levels + bwd.n_levels
+    return fwd, bwd
+
+
+def pcg_graphs(dev, out: dict) -> None:
+    """PCG on phase 12's input: at tol 1e-6 the graphed chunks of
+    ``pcg.CHUNK`` iterations against the eager loop (equal iteration
+    counts, float64 residual under phase 12's limit); at tol 1e-6 and
+    1e-5 (a count that 8 and 16 do not divide) the replays at each of
+    ``PCG_CHUNKS``, and the host-read loop whose triangular solves replay
+    their graphs. Every count must equal the host-read loop's."""
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import pcg
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b = torch.randn(n, generator=gen, device=dev)
+    setup, t_setup = timed(lambda: pcg.PCGSetup.build(a))
+    log(f"  PCG set-up (IC(0), schedules, ELL) {t_setup:.3f} s; "
+        f"{setup.fwd.n_levels} levels each way; the first call at chunk "
+        f"{PCG_CHUNKS[0]} also captures the two (n,) solve graphs")
+
+    def check(x):
+        res = float(torch.linalg.norm(b.double() - matvec64(a, x))
+                    / torch.linalg.norm(b.double()))
+        log(f"    float64 residual {res:.3e} (limit {PCG_RES_MAX:g})")
+        if not res <= PCG_RES_MAX:
+            raise AssertionError("graphed PCG: residual over the limit")
+
+    def solve_at(chunk, tol, its):
+        def solve():
+            pcg.CHUNK = chunk
+            x, it, _ = pcg.pcg_solve(a, b, tol=tol, setup=setup)
+            its.append(it)
+            return x
+        return solve
+    kept = pcg.CHUNK
+    try:
+        for tol in PCG_TOLS:
+            (_, want, _), t = timed(lambda: pcg._pcg_loop(setup, b, tol,
+                                                           1000))
+            log(f"  PCG tol {tol:g}: the host-read loop (one read an "
+                f"iteration, the solves replayed) {want} iterations in "
+                f"{t * 1e3:.2f} ms")
+            for chunk in PCG_CHUNKS:
+                its = []
+                key = f"PCG tol {tol:g}, chunk {chunk}"
+                solve = solve_at(chunk, tol, its)
+                if tol == PCG_TOLS[0] and chunk == kept:
+                    def eager(tol=tol, its=its):
+                        x, it, _ = pcg._pcg_loop(setup, b, tol, 1000)
+                        its.append(it)
+                        return x
+                    row = graph_vs_eager(key, solve, check, eagerly(eager))
+                else:
+                    solve()
+                    t_graph = [timed(solve)[1] for _ in range(GRAPH_RUNS)]
+                    row = {"replay_ms": ms_stats(t_graph), "profile": None}
+                    log(f"  {key}: replay {fmt_ms(row['replay_ms'])} ms")
+                if set(its) != {want}:
+                    raise AssertionError(f"{key}: iterations {its}, the "
+                                         f"eager loop {want}")
+                row["iterations"] = want
+                row["masked_steps"] = -want % chunk
+                row["replay_ms_per_iteration"] = \
+                    row["replay_ms"]["median"] / max(want, 1)
+                out[key] = row
+                log(f"    {want} iterations under graphs and eager, "
+                    f"{row['masked_steps']} masked steps in the last chunk; "
+                    f"replay median {row['replay_ms_per_iteration']:.3f} ms "
+                    f"an iteration")
+    finally:
+        pcg.CHUNK = kept
+
+
+def chebyshev_graphs(dev, out: dict) -> None:
+    """Chebyshev(200) with the analytic bounds on phase 12's input, one
+    graph against the eager loop, float64 residual under phase 12's
+    limit."""
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import chebyshev as ch
+    from basic_sparse_matrix_tpu_torch.models.lanczos import LanczosSetup
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    b = torch.randn(n, generator=gen, device=dev)
+    setup = LanczosSetup.build(a)
+
+    def check(x):
+        res = float(torch.linalg.norm(b.double() - matvec64(a, x))
+                    / torch.linalg.norm(b.double()))
+        log(f"    float64 residual {res:.3e} (limit {CHEBY_RES_MAX:g})")
+        if not res <= CHEBY_RES_MAX:
+            raise AssertionError("graphed Chebyshev: residual over the "
+                                 "limit")
+    key = "Chebyshev(200), analytic bounds"
+    out[key] = graph_vs_eager(
+        key, lambda: ch.chebyshev_solve(a, b, iters=200,
+                                        bounds=(LAMBDA_MIN, LAMBDA_MAX),
+                                        setup=setup)[0], check)
+
+
+def compiled_loops_phase(dev, solver6, tree, batched_operands) -> dict:
+    """Phase 22: every graphed loop of this slice against its eager loop on
+    the same card in the same run, then one profiled replay of each
+    (device operations = the launches its graphs hold, busy share) and one
+    profiled eager supernodal solve. The profiler runs last: after a
+    profiled window, unprofiled walls of launch-bound loops in the same
+    process read slow."""
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import pcg
+
+    log(f"compiled loops (phase 22): captured CUDA graphs against the eager "
+        f"loops; pcg.CHUNK = {pcg.CHUNK}:")
+    out = {}
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    x_true, b8 = seeded_system(a, SEED + 3)
+    t0 = time.perf_counter()
+    fwd, bwd = direct_graphs(f"supernodal {SOLVER_K}³ ND solve", solver6, a,
+                             x_true, b8, out)
+    # the batched 8 × 8 solves of 21(a), on the solver's unknowns, on the
+    # same fresh schedule copies
+    ops = batched_operands
+    pair = triangular_pair(fwd, bwd, (ops["vf"], ops["vb"]))
+
+    def check_batch(x):
+        for i in range(x.shape[0]):
+            check_solution(f"system {i}", ops["mats"][i], x[i],
+                           ops["x_true"][i], ops["rhs"][i])
+    key = f"batched {BATCH} systems × 8 rhs"
+    out[key] = graph_vs_eager(key, lambda: pair(ops["rhs"]), check_batch)
+    log(f"  [supernodal: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    tree_solver, tree_a = tree
+    tx, tb = seeded_system(tree_a, SEED + 6)
+    direct_graphs(f"tree scatter solve (n {tree_a.rows})", tree_solver,
+                  tree_a, tx, tb, out)
+    log(f"  [tree: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    pcg_graphs(dev, out)
+    log(f"  [PCG: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    chebyshev_graphs(dev, out)
+    log(f"  [Chebyshev: {time.perf_counter() - t0:.1f} s]")
+
+    t0 = time.perf_counter()
+    eager_key = f"supernodal {SOLVER_K}³ ND solve 1 rhs"
+    profiles = {key: row.pop("profile") for key, row in out.items()}
+    profiles["eager " + eager_key] = eagerly(profiles[eager_key])
+    for key, fn in profiles.items():
+        if fn is None:
+            continue
+        row = out.setdefault(key, {})
+        row.update(device_busy(fn))
+        log(f"  {key}: one call profiled: {row['device_ops']} device "
+            f"operations, device busy {100 * row['busy_share']:.1f}% of the "
+            f"{row['profiled_ms']:.2f} ms window "
+            f"[{time.perf_counter() - t0:.1f} s]")
+    log(f"  [profiles: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2991,7 +3330,6 @@ def main() -> None:
     t0 = time.perf_counter()
     batched = batched_values_phase(dev, solver6, returned["scatter_tier"],
                                    gen)
-    del solver6, returned
     torch.cuda.empty_cache()
     log(f"  [batched_values_phase: {time.perf_counter() - t0:.1f} s]")
     # K3 and the rect entry with a batch axis; launches are those of 21(a)'s
@@ -3003,7 +3341,18 @@ def main() -> None:
                 "launches": batched["supernodal"]["launches"][k["name"]]}
     batched.pop("kernels")
     batched["spmm_rhs"] = batched_rhs
+    operands = batched["supernodal"].pop("operands")
+    batched["scatter"].pop("operands")
     log("phase 21 summary: " + json.dumps(batched, default=float))
+
+    # ---- 22. the compiled loops --------------------------------------------
+    t0 = time.perf_counter()
+    loops = compiled_loops_phase(dev, solver6, returned["scatter_tier"],
+                                 operands)
+    del solver6, returned, operands
+    torch.cuda.empty_cache()
+    log(f"  [compiled_loops_phase: {time.perf_counter() - t0:.1f} s]")
+    log("phase 22 summary: " + json.dumps(loops, default=float))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "

@@ -4,8 +4,8 @@ many numeric systems, against ``jax.vmap`` of the JAX functions on the CPU.
 * the three cases of ``tests/test_batched.py`` (scatter-list factorization,
   SpMM over a batch of right-hand sides, SpMM over a batch of values);
 * ``spmm_auto``/``mul_dense`` with ``b`` (Bt, K, N) on each rung of the
-  ladder, and ``spmm(values=…)`` with a shared and a per-system RHS, in
-  chunks;
+  ladder and with an empty ``b`` (JAX's zeros), and ``spmm(values=…)``
+  with a shared and a per-system RHS, in chunks;
 * the triangular solves on ``schedule_values`` against ``jax.vmap`` of
   ``_solve_scheduled`` over schedules stacked from each system's factor,
   forward and mirrored, and factor → solve through ``csr_value_order``;
@@ -182,6 +182,25 @@ def test_vmapped_spmm(case, entry):
     _close(got, want, rtol=1e-4, atol_of_max=1e-4)
     for i in range(4):
         assert np.allclose(got[i].numpy(), d @ bb[i], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(0, 9, 5), (2, 9, 0), (9, 0)])
+@pytest.mark.parametrize("entry", ["mul_dense", "spmm_auto"])
+def test_empty_rhs_gives_jax_zeros(entry, shape):
+    """An empty RHS, batched or not: zeros of JAX's shape, (0, 7, 5),
+    (2, 7, 0) and (7, 0)."""
+    rng = np.random.default_rng(0)
+    d = ((rng.random((7, 9)) < 0.3)
+         * rng.integers(1, 9, (7, 9))).astype(np.float32)
+    ja, pa = J.CSR.from_dense(d), P.CSR.from_dense(d)
+    b = np.zeros(shape, dtype=np.float32)
+    if len(shape) == 3:
+        want = jax.vmap(lambda x: jops.mul_dense(ja, x))(jnp.asarray(b))
+    else:
+        want = jops.mul_dense(ja, jnp.asarray(b))
+    got = getattr(pspmm, entry)(pa, torch.as_tensor(b))
+    assert got.shape == want.shape == (shape[:-2] + (7, shape[-1]))
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 def _values_case():
