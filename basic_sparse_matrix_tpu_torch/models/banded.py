@@ -16,7 +16,8 @@ coupling block ``i+1`` to block ``i``), and Cholesky keeps the band:
 The JAX package runs the m block rows as one ``lax.scan``; here they are a
 Python loop of the same (nb, nb) steps, every product under
 :func:`matmul_precision` (TF32 off). Both triangular solves are
-block-bidiagonal loops. The tail block is padded with an identity diagonal
+block-bidiagonal loops, on the card replayed as one CUDA graph per factor
+and right-hand-side shape. The tail block is padded with an identity diagonal
 so every step has the same shape; padded rows of the right-hand side are
 zero and decouple.
 """
@@ -24,12 +25,14 @@ zero and decouple.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..ops.csr import CSR, to_tensor
 from ..ops.reorder import bandwidth
+from ..runtime import graphs
 from ..utils.config import matmul_precision
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 from .cholesky import cholesky_dense
@@ -165,9 +168,15 @@ def _blocked_rhs(b, n: int, m: int, nb: int, device):
 
 
 def solve_factored_banded(fac: BandedFactor, b) -> torch.Tensor:
-    """Solve ``A x = b`` from a prepared :class:`BandedFactor`."""
+    """Solve ``A x = b`` from a prepared :class:`BandedFactor`. On the card
+    the two block scans replay one CUDA graph per factor and right-hand
+    side shape, captured on the first call (``runtime/graphs.py``; the JAX
+    package's jitted ``solve_banded_blocks``); the blocking of ``b`` runs
+    outside it."""
     blocks, squeeze = _blocked_rhs(b, fac.n, fac.m, fac.nb, fac.L.device)
-    x = solve_banded_blocks(fac.L, fac.F, blocks)
+    x = graphs.run(fac, ("banded",) + graphs.host_state(),
+                   functools.partial(solve_banded_blocks, fac.L, fac.F),
+                   blocks)
     x = x.reshape(fac.m * fac.nb, -1)[: fac.n]
     return x[:, 0] if squeeze else x
 

@@ -30,10 +30,12 @@ is a Python loop over halving shapes, every product under
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..ops.csr import CSR, to_tensor
+from ..runtime import graphs
 from ..utils.config import matmul_precision
 from .banded import _blocked_rhs, band_blocks, bandwidth, block_size_for
 from .cholesky import cholesky_dense
@@ -184,12 +186,19 @@ class BCRSolver:
     nb: int
 
     def solve(self, b) -> torch.Tensor:
+        """Solve ``A x = b``; ``b`` (n,) or (n, k). On the card the BCR
+        solve and its refinement replay one CUDA graph per solver and
+        right-hand-side shape, captured on the first call
+        (``runtime/graphs.py``); the blocking and padding of ``b`` run
+        outside it."""
         m = -(-self.n // self.nb)
         blocks, squeeze = _blocked_rhs(b, self.n, m, self.nb, self.D.device)
         mp = self.fac.m_padded
         if mp != m:
             blocks = torch.nn.functional.pad(blocks, (0, 0, 0, 0, 0, mp - m))
-        x = _solve_refined(self.fac, self.D, self.E, blocks)
+        x = graphs.run(self, ("bcr",) + graphs.host_state(),
+                       functools.partial(_solve_refined, self.fac, self.D,
+                                         self.E), blocks)
         x = x.reshape(mp * self.nb, -1)[: self.n]
         return x[:, 0] if squeeze else x
 

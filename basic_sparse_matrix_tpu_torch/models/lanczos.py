@@ -7,7 +7,11 @@ step (the ELL gather + row reduce when the padding overhead permits, as in
 PCG); the rest is (k, n) × (n,) products under :func:`matmul_precision`.
 
 * k steps as a Python loop (the JAX package's ``lax.scan``); nothing is
-  read back to the host inside the loop.
+  read back to the host inside the loop. On the card the k steps are one
+  CUDA graph per set-up, k and start-vector shape, captured on the second
+  call and replayed on every later one (``runtime/graphs.py``); the Ritz
+  values' ``eigvalsh`` runs outside it (torch reads its status on the
+  host).
 * Full reorthogonalisation every step: classical Gram-Schmidt twice against
   the stored basis (CGS2). Rows of V beyond the current step are zero and
   project to zero.
@@ -26,12 +30,14 @@ same ``v0`` (``_ritz_values``), not given the same seed.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from ..ops.csr import CSR
 from ..ops.ell import ELL
+from ..runtime import graphs
 from ..utils.config import matmul_precision
 from ..utils.errors import NonSquareMatrix, check
 
@@ -72,7 +78,15 @@ def _lanczos_scan(setup: LanczosSetup, v0: torch.Tensor, k: int
     """k Lanczos steps with full reorthogonalisation.
 
     Returns (alphas (k,), betas (k-1,), V (k, n)) with V the orthonormal
-    Krylov basis."""
+    Krylov basis. On the card the steps replay a graph owned by ``setup``
+    from the second call with the same k and ``v0`` shape on."""
+    return graphs.run(setup, ("lanczos", k) + graphs.host_state(),
+                      functools.partial(_lanczos_steps, setup, k), v0,
+                      capture_on=2)
+
+
+def _lanczos_steps(setup: LanczosSetup, k: int, v0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     n = v0.shape[0]
     v0 = v0.to(torch.float32)
     v0 = v0 / torch.linalg.norm(v0).clamp_min(1e-30)

@@ -4,7 +4,8 @@ Counterpart of ``basic_sparse_matrix_tpu/models/qr.py`` and of the
 reference's ``qr_decomp`` (Householder deflation) and ``eigen_values``
 (unshifted QR iteration for a caller-chosen number of steps, no
 convergence test). The operand is densified and factored by
-``torch.linalg.qr`` (one call); the eigenvalue iteration is a Python loop.
+``torch.linalg.qr`` (one call); the eigenvalue iteration is a Python loop,
+on the card one CUDA graph per operand shape, dtype and iteration count.
 Householder sign conventions differ between libraries, so Q and R are
 defined up to the signs of R's rows, as in the reference, whose own test
 asserts only the residual. Every product runs under
@@ -13,12 +14,14 @@ asserts only the residual. Every product runs under
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..ops.csr import CSR
+from ..runtime import graphs
 from ..utils.config import default_device, matmul_precision
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 
@@ -113,9 +116,26 @@ def qr_decomp(a: CSR) -> Tuple[CSR, CSR]:
             CSR.from_dense(r, device=a.device))
 
 
+class _Programs:
+    """The owner of the QR iteration's graphs (one for the module)."""
+
+
+_QR_ITERATION = _Programs()
+
+
 def eigen_values_dense(a: torch.Tensor, iterations: int) -> torch.Tensor:
     """Unshifted QR iteration: ``A ← R Q`` repeated ``iterations`` times,
-    then the diagonal — the reference ``eigen_values``."""
+    then the diagonal — the reference ``eigen_values``. On the card the
+    loop is one CUDA graph per operand shape, dtype and ``iterations``
+    (``runtime/graphs.py``, keyed as ``jax.jit`` caches), captured on the
+    second such call and replayed on every later one."""
+    return graphs.run(_QR_ITERATION, ("qr_eig", iterations)
+                      + graphs.host_state(),
+                      functools.partial(_qr_iterate, iterations), a,
+                      capture_on=2)
+
+
+def _qr_iterate(iterations: int, a: torch.Tensor) -> torch.Tensor:
     working = a.to(torch.float32)
     with matmul_precision():
         for _ in range(iterations):

@@ -89,18 +89,18 @@ class DirectSolver:
         cfg = get_config()
         self.n = a.rows
         self.device = a.device
-        self.perm = None
+        self._set_perm(None)
         self.timings = {}
         self._banded = None
         self._l = self._fwd = self._bwd = None
         clock = _Clock(a.device, self.timings)
         if reorder:
             if cfg.ordering == "auto":
-                self.perm, _ = best_permutation(a)
+                self._set_perm(best_permutation(a)[0])
             elif cfg.ordering == "rcm":
-                self.perm = rcm_permutation(a)
+                self._set_perm(rcm_permutation(a))
             elif cfg.ordering == "nd":
-                self.perm = nd_permutation(a)
+                self._set_perm(nd_permutation(a))
             if self.perm is not None:
                 a = permute_symmetric(a, self.perm)
         clock.lap("order")
@@ -137,10 +137,25 @@ class DirectSolver:
         self._bwd = build_schedule(self._l.transpose(), lower=False)
         clock.lap("schedules")
 
+    def _set_perm(self, perm) -> None:
+        """Keep the fill-reducing permutation (host, ``perm``) and the
+        gathers into and out of permuted space as int64 tensors on the
+        solver's device, built once: a solve then uploads and inverts
+        nothing."""
+        self.perm = perm
+        self._gathers = None
+        if perm is not None:
+            perm = np.asarray(perm, dtype=np.int64)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.shape[0])
+            self._gathers = tuple(torch.as_tensor(p, device=self.device)
+                                  for p in (perm, inv))
+
     def solve(self, b) -> torch.Tensor:
         """Solve ``A x = b`` from the prepared factorization; ``b`` may be a
         Dense wrapper, a vector or an (n, k) array. 1-D input returns
-        1-D."""
+        1-D. The permutations are gathers with the solver's device
+        tensors."""
         from ..ops.reorder import apply_perm
         from . import banded as _bd
         from .sparse_triangular import solve_triangular_sparse
@@ -150,8 +165,8 @@ class DirectSolver:
         rhs = _as_array(b, self.device)
         check(rhs.shape[0] == self.n, IncorrectDimensions,
               f"solve: A n={self.n} vs b {tuple(rhs.shape)}")
-        if self.perm is not None:
-            rhs = apply_perm(rhs, self.perm)
+        if self._gathers is not None:
+            rhs = apply_perm(rhs, self._gathers[0])
         if self.kind == "banded-bcr":
             x = self._banded.solve(rhs)
         elif self.kind == "banded":
@@ -159,8 +174,8 @@ class DirectSolver:
         else:
             y = solve_triangular_sparse(self._l, rhs, self._fwd)
             x = solve_triangular_sparse(self._l, y, self._bwd, lower=False)
-        if self.perm is not None:
-            x = apply_perm(x, self.perm, inverse=True)
+        if self._gathers is not None:
+            x = apply_perm(x, self._gathers[1])
         return x[:, 0] if squeeze else x
 
 

@@ -41,13 +41,14 @@ factor is the same.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..ops.csr import CSR, to_tensor
-from ..runtime import symbolic
+from ..runtime import graphs, symbolic
 from ..utils.errors import NonSquareMatrix, check
 
 
@@ -206,7 +207,9 @@ def factor_levels(sched: CholeskySchedule, lvals: torch.Tensor, lo: int,
             opos = sched.col_off[o0:o1]
             lvals[..., opos] = lvals[..., opos] \
                 * inv[..., sched.col_seg[o0:o1]]
-    lvals[..., -1] = 0.0
+    # fill_, not "= 0.0": a Python float assigned to a CUDA tensor is an
+    # upload, a host synchronisation that a graph capture refuses
+    lvals[..., -1].fill_(0.0)
     return lvals
 
 
@@ -215,10 +218,24 @@ def factorize(sched: CholeskySchedule, a_values: torch.Tensor
     """Numeric phase on ``a_values``' device: L's CSC value array (length
     ``nnz_l``), a Python loop over the levels. ``a_values`` of shape (Bt,
     nnz) factors ``Bt`` matrices of the schedule's pattern at once and
-    returns (Bt, nnz_l)."""
+    returns (Bt, nnz_l).
+
+    On the card the loop is one CUDA graph per schedule, value shape, matmul
+    precision and deterministic-algorithms flag (``runtime/graphs.py``),
+    captured on the second call and replayed on every later one (the JAX
+    package's jitted ``factorize``); the first call on a schedule runs
+    eagerly. :func:`factor_levels`, which cuts the levels for
+    ``runtime.checkpoint``, stays eager."""
     if a_values.ndim not in (1, 2):
         raise ValueError(f"factorize takes a_values (nnz,) or (Bt, nnz), "
                          f"got {tuple(a_values.shape)}")
+    return graphs.run(sched, ("numeric",) + graphs.host_state(),
+                      functools.partial(_factorize_all, sched), a_values,
+                      capture_on=2)
+
+
+def _factorize_all(sched: CholeskySchedule, a_values: torch.Tensor
+                   ) -> torch.Tensor:
     lvals = initial_lvals(sched, a_values)
     return factor_levels(sched, lvals, 0, sched.n_levels)[..., :-1]
 

@@ -18,7 +18,9 @@ into three flat buffers for its TPU transport); ``_host_tabs`` keeps the
 numpy tables under the JAX names.
 
 Numeric (device — :func:`factorize_supernodal`): a Python loop over groups
-and over the levels of each group (the JAX package's ``lax.scan``). Each
+and over the levels of each group (the JAX package's ``lax.scan``), on the
+card captured as one CUDA graph per schedule and replayed from the second
+re-factorization on (the JAX package's ``jax.jit``). Each
 level gathers its operands (element positions, or contiguous runs through
 the K3 kernel ``ops/pallas/runs_read``), runs one batched product, applies
 the updates (per-element scatter, target-rect scatter, or the add-back
@@ -50,6 +52,7 @@ as in the JAX package; they are unmeasured on the H100.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -58,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.csr import CSR, to_tensor
-from ..runtime import symbolic
+from ..runtime import graphs, symbolic
 from ..utils.config import get_config, matmul_precision
 from ..utils.errors import NonSquareMatrix, check
 
@@ -967,13 +970,15 @@ def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
     else:
         _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
                          scratch)
-    lvals[..., scratch] = 0.0
+    # fill_, not "= 0.0": assigning a Python float to a CUDA tensor uploads
+    # it, a host synchronisation that a graph capture refuses
+    lvals[..., scratch].fill_(0.0)
 
     # 2) batched panel finalisation
     tp, bp = _panel_positions(cp, r_tab, tv, R, scratch)
     T, Bp = _panel_reads(lvals, cp, r_tab, tv, R, tp, bp, window, kread)
     lvals[..., tp], lvals[..., bp] = _panel_factors(T, Bp, tv)
-    lvals[..., scratch] = 0.0
+    lvals[..., scratch].fill_(0.0)
     return lvals
 
 
@@ -1112,10 +1117,25 @@ def factorize_supernodal(sched: SupernodalSchedule,
                          a_values: torch.Tensor) -> torch.Tensor:
     """Numeric phase on ``a_values``' device; returns L's flat CSC value
     array (length nnz_l). A Python loop over groups and their levels, every
-    product under :func:`matmul_precision`. Config
-    ``supernodal_groups_per_program`` bounds XLA programs in the JAX
-    package; PyTorch runs eagerly, so it is accepted and changes nothing
-    here.
+    product under :func:`matmul_precision`.
+
+    On the card the whole phase (``_init_lvals`` and every group's levels)
+    is one captured CUDA graph per schedule, value shape and configuration
+    (``runtime/graphs.py``), captured on the second call: the first call on
+    a schedule (``DirectSolver``'s own factorization) runs the loop eagerly,
+    the second captures and replays it, and every later call replays it
+    (the JAX package's jitted ``_factorize_supernodal_whole``). The key
+    holds what the recorded program depends on: the read and scatter modes,
+    the tail padding, the matmul precision and the deterministic-algorithms
+    flag. K3
+    and the add-back's rect entry launch inside the graph, so their
+    ``LAUNCHES`` move at the capture and not at a replay.
+
+    Config ``supernodal_groups_per_program`` selects nothing here. It bounds
+    the size of an XLA program in the JAX package, and a CUDA graph has no
+    such limit; cut by it, the 33³ schedule's 263 groups would take 6 graphs
+    against ``graphs.MAX_GRAPHS_PER_OWNER`` = 4, which would evict each
+    other at every call. It is accepted and changes nothing.
 
     ``a_values`` of shape (Bt, nnz) factors ``Bt`` matrices of the
     schedule's pattern at once (``jax.vmap`` over the values in the JAX
@@ -1124,7 +1144,22 @@ def factorize_supernodal(sched: SupernodalSchedule,
     if a_values.ndim not in (1, 2):
         raise ValueError(f"factorize_supernodal takes a_values (nnz,) or "
                          f"(Bt, nnz), got {tuple(a_values.shape)}")
-    window, mode, pad = _numeric_modes(sched)
+    return graphs.run(sched, numeric_tag(sched),
+                      functools.partial(_factorize_whole, sched,
+                                        *_numeric_modes(sched)),
+                      a_values, capture_on=2)
+
+
+def numeric_tag(sched: SupernodalSchedule) -> tuple:
+    """The graph tag of the numeric phase under the current configuration
+    and torch settings."""
+    return ("numeric",) + _numeric_modes(sched) + graphs.host_state()
+
+
+def _factorize_whole(sched: SupernodalSchedule, window, mode: str, pad: int,
+                     a_values: torch.Tensor) -> torch.Tensor:
+    """The numeric phase as one loop: A's values into ``lvals``, then every
+    group's levels in order."""
     scratch = sched.nnz_l
     with matmul_precision():
         lvals = _init_lvals(sched, a_values, pad)

@@ -111,10 +111,18 @@ def permute_symmetric(a: CSR, perm: np.ndarray) -> CSR:
     )
 
 
-def apply_perm(x: torch.Tensor, perm: np.ndarray,
-               inverse: bool = False) -> torch.Tensor:
+def apply_perm(x: torch.Tensor, perm, inverse: bool = False) -> torch.Tensor:
     """Permute the rows of ``x`` into (or out of) permuted space, on
-    ``x``'s device."""
+    ``x``'s device. ``perm`` is a numpy array (inverted on the host and
+    uploaded at each call) or an int64 tensor (gathered with on ``x``'s
+    device; a prepared solver keeps both directions as tensors and never
+    inverts)."""
+    if isinstance(perm, torch.Tensor):
+        perm = perm.to(device=x.device, dtype=torch.int64)
+        if inverse:
+            perm = torch.empty_like(perm).scatter_(
+                0, perm, torch.arange(perm.shape[0], device=perm.device))
+        return x[perm]
     perm = np.asarray(perm)
     if inverse:
         inv = np.empty_like(perm)

@@ -134,7 +134,7 @@ def load_direct(path: str, device=None):
         s.n = int(z["n"])
         s.device = device = default_device(device)
         perm = z["perm"]
-        s.perm = perm if perm.size else None
+        s._set_perm(perm if perm.size else None)
         s.timings = {}
         s._l = s._fwd = s._bwd = None
         if str(z["kind"]) == "direct-bcr":

@@ -1,20 +1,41 @@
 """Captured CUDA graphs: the port's counterpart of ``jax.jit`` for a loop
 with static shapes.
 
-The JAX package runs each serving loop (the level loop of a triangular
-solve, IC(0)-PCG's ``lax.while_loop``, Chebyshev's ``fori_loop``) as one
-compiled device program. In the port the same loop is a sequence of small
-torch operations, thousands of launches a call, and the host's launch
-rate bounds it. :func:`run` captures such a loop once into a
-``torch.cuda.CUDAGraph`` per (owner, tag, operand shapes) and replays it on
-every later call, so the host issues one graph launch per call.
+The JAX package runs each numeric and serving loop as one compiled device
+program. In the port the same loop is a sequence of small torch
+operations, thousands of launches a call, and the host's launch rate
+bounds it. :func:`run` captures such a loop into a ``torch.cuda.CUDAGraph``
+per (owner, tag, operand shapes) and replays it on every later call, so
+the host issues one graph launch per call. The loops and their owners:
+
+* the level loop of a triangular solve (``models/sparse_triangular``),
+  owner the ``TriangularSchedule``;
+* IC(0)-PCG's chunk of iterations (``models/pcg``), owner the
+  ``PCGSetup``;
+* Chebyshev's iterations and Lanczos' steps (``models/chebyshev``,
+  ``models/lanczos``), owner the ``LanczosSetup``;
+* the supernodal numeric phase (``models/supernodal``), owner the
+  ``SupernodalSchedule``; the scatter-list one (``models/sparse_cholesky``),
+  owner the ``CholeskySchedule``;
+* the banded scan solve and the BCR solve (``models/banded``,
+  ``models/bcr``), owners the ``BandedFactor`` and the ``BCRSolver``;
+* the QR eigen-iteration (``models/qr``), one owner for the module, keyed
+  by the operand's shape and dtype as ``jax.jit`` caches.
+
+Rules:
 
 * Only CUDA operands are captured. On the CPU ``fn`` runs as it is and no
-  graph is built.
+  graph is built or call counted.
 * While the current stream is itself capturing (a triangular solve inside
   the PCG chunk), ``fn`` runs as it is, so that the outer graph records its
   operations: this is how graphs compose.
-* The first call for a key runs ``fn`` once on a side stream (the warm-up
+* ``capture_on``: the call of a key that captures. The calls before it run
+  ``fn`` eagerly and only count (the count lives in the owner's entry, so
+  it goes with the owner). The solves, PCG and Chebyshev capture on their
+  first call (1); the numeric phases, Lanczos and the QR iteration on
+  their second (2), so that a one-shot factorization or set-up pays no
+  warm-up or capture.
+* The capturing call runs ``fn`` once on a side stream (the warm-up
   ``torch.cuda.graph`` needs, which also builds anything made lazily) with
   synchronising operations made errors, captures it on static copies of
   the operands, and replays the graph. Later calls copy the operands into
@@ -25,11 +46,14 @@ every later call, so the host issues one graph launch per call.
   loop in a graph's place on the card. A host read in ``fn`` (``.item()``,
   ``bool``, ``.cpu()``, a data-dependent shape) fails in the warm-up,
   before the capture begins, so the process stays usable.
+* A tag names every host-side value the recorded program depends on (an
+  iteration count, a formulation; :func:`host_state` gives the matmul
+  precision and the deterministic-algorithms flag): a graph replays the
+  operations it recorded, so a changed setting must make a new key.
 
-The cache is a ``WeakKeyDictionary`` keyed by the owner object (a
-``TriangularSchedule``, ``PCGSetup`` or ``LanczosSetup``; dataclasses with
-``eq=False``, so they hash by identity): a graph and its private memory
-pool go with the owner, and checkpoints never see them.
+The cache is a ``WeakKeyDictionary`` keyed by the owner object (dataclasses
+with ``eq=False``, so they hash by identity): a graph and its private
+memory pool go with the owner, and checkpoints never see them.
 
 ``fn`` must not write to its operands, and must read device values only
 through tensors (its operands or tensors the owner keeps): the graph
@@ -59,24 +83,48 @@ class _Graph:
     single: bool                        # fn returned one tensor
 
 
-_GRAPHS: "weakref.WeakKeyDictionary[object, collections.OrderedDict]" = \
+@dataclasses.dataclass(eq=False)
+class _Entry:
+    graphs: collections.OrderedDict = dataclasses.field(
+        default_factory=collections.OrderedDict)
+    calls: dict = dataclasses.field(default_factory=dict)  # eager calls a key
+
+
+_GRAPHS: "weakref.WeakKeyDictionary[object, _Entry]" = \
     weakref.WeakKeyDictionary()
 
 
-def run(owner, tag, fn: Callable, *operands: torch.Tensor):
+def host_state() -> tuple:
+    """The host settings a recorded numeric program depends on: the
+    configured matmul precision (TF32 or not) and whether torch's
+    deterministic algorithms are on (another ``index_add_`` kernel)."""
+    from ..utils.config import get_config
+
+    return (get_config().matmul_precision.lower(),
+            torch.are_deterministic_algorithms_enabled())
+
+
+def run(owner, tag, fn: Callable, *operands: torch.Tensor,
+        capture_on: int = 1):
     """``fn(*operands)``; on CUDA operands through the graph cached for
     ``(owner, tag)`` and the operands' shapes, dtypes and device, captured
-    on the first such call. ``tag`` names what ``fn`` computes for this
-    owner, with any static parameter (an iteration count)."""
+    on the ``capture_on``-th such call (the earlier ones run ``fn``
+    eagerly). ``tag`` names what ``fn`` computes for this owner, with any
+    static parameter (an iteration count)."""
     if not operands[0].is_cuda or torch.cuda.is_current_stream_capturing():
         return fn(*operands)
     key = (tag,) + tuple((tuple(x.shape), x.dtype, x.device)
                          for x in operands)
-    graphs = _GRAPHS.setdefault(owner, collections.OrderedDict())
+    owned = _GRAPHS.setdefault(owner, _Entry())
+    graphs = owned.graphs
     entry = graphs.get(key)
+    if entry is None and owned.calls.get(key, 0) + 1 < capture_on:
+        owned.calls[key] = owned.calls.get(key, 0) + 1
+        return fn(*operands)
     with torch.cuda.device(operands[0].device):
         if entry is None:
             entry = _capture(fn, operands)
+            owned.calls.pop(key, None)
             graphs[key] = entry
             while len(graphs) > MAX_GRAPHS_PER_OWNER:
                 graphs.popitem(last=False)
@@ -89,10 +137,19 @@ def run(owner, tag, fn: Callable, *operands: torch.Tensor):
     return outs[0] if entry.single else outs
 
 
+# One warm-up stream per device, made once: cuBLAS and cuSOLVER keep a
+# workspace per (handle, stream) for the life of the process, so a fresh
+# stream per capture would leave one behind at every capture.
+_WARM_UP_STREAMS: dict = {}
+
+
 def _capture(fn: Callable, operands) -> _Graph:
     inputs = tuple(x.detach().clone(memory_format=torch.contiguous_format)
                    for x in operands)
-    side = torch.cuda.Stream()
+    device = torch.cuda.current_device()
+    side = _WARM_UP_STREAMS.get(device)
+    if side is None:
+        side = _WARM_UP_STREAMS[device] = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     # A host read inside a capture invalidates it, and the failed capture
     # leaves the allocator and the random generators in capture mode: the
@@ -114,9 +171,16 @@ def _capture(fn: Callable, operands) -> _Graph:
 
 def count(owner) -> int:
     """Graphs cached for ``owner``."""
-    return len(_GRAPHS.get(owner, ()))
+    owned = _GRAPHS.get(owner)
+    return len(owned.graphs) if owned is not None else 0
+
+
+def calls(owner) -> int:
+    """Eager calls counted for ``owner`` towards a later capture."""
+    owned = _GRAPHS.get(owner)
+    return sum(owned.calls.values()) if owned is not None else 0
 
 
 def owners() -> int:
     """Owners holding at least one graph."""
-    return len(_GRAPHS)
+    return sum(1 for owned in list(_GRAPHS.values()) if owned.graphs)

@@ -2249,8 +2249,10 @@ def supernodal_sharded(dev, mesh) -> dict:
     log(f"(a) supernodal, 33³ Laplacian under ND: single-device set-up "
         f"{setup:.3f} s ({log_timings(solver.timings)}); {sched.n_groups} "
         f"groups, nnz_l {sched.nnz_l}")
-    single, t_single = timed(lambda: sn.factorize_supernodal(sched,
-                                                            ap.values))
+    # eager, as the sharded factorization runs (this is the schedule's
+    # second call, which would capture)
+    single, t_single = timed(eagerly(lambda: sn.factorize_supernodal(
+        sched, ap.values)))
     levels = {m: 0 for m in ("vmem", "pallas")}
     for gi in range(sched.n_groups):
         mode = sn._group_delta(sched, gi, "auto")
@@ -2306,7 +2308,8 @@ def scatter_sharded(dev, mesh) -> dict:
     log(f"(b) scatter-list, tree Laplacian + I, n {n} under RCM: "
         f"single-device set-up {setup:.3f} s ({log_timings(solver.timings)});"
         f" {sched.n_levels} levels, {sched.n_triples} triples")
-    single, t_single = timed(lambda: sc.factorize(sched, ap.values))
+    single, t_single = timed(eagerly(lambda: sc.factorize(sched,
+                                                          ap.values)))
     lv, t_dist = timed(lambda: pc.factorize_sharded(sched, ap.values, mesh))
     close_of_max(f"factorize_sharded at {DIRECT_SHARDS} shards vs factorize",
                  lv, single, DIRECT_FACTOR_ATOL_OF_MAX)
@@ -2501,21 +2504,28 @@ def with_values(a, values):
     return CSR(a.indptr, a.indices, values, a.rows, a.cols)
 
 
-def batched_solve_values(solver, lv):
-    """The batched triangular solves' values of factors ``lv`` (Bt, nnz_l)
-    in the schedule's CSC order, on the solver's schedules (built once from
-    its own factor, whose pattern they share): (forward, backward) value
-    pairs and ``l.transpose()``."""
+def solve_value_orders(solver):
+    """The CSR orders of the factor's and its transpose's values from the
+    schedule's CSC order (host argsorts, once per pattern) and
+    ``l.transpose()``."""
     from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
 
     rows, cols = st.factor_pattern(solver.sched)
-    l = solver._l
-    lt = l.transpose()
-    fwd = st.schedule_values(solver._fwd,
-                             lv[:, st.csr_value_order(rows, cols, l)])
-    bwd = st.schedule_values(solver._bwd,
-                             lv[:, st.csr_value_order(cols, rows, lt)])
-    return fwd, bwd, lt
+    lt = solver._l.transpose()
+    return (st.csr_value_order(rows, cols, solver._l),
+            st.csr_value_order(cols, rows, lt), lt)
+
+
+def batched_solve_values(solver, lv, orders):
+    """The batched triangular solves' values of factors ``lv`` (Bt, nnz_l)
+    in the schedule's CSC order, on the solver's schedules (built once from
+    its own factor, whose pattern they share): (forward, backward) value
+    pairs."""
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+
+    fwd_order, bwd_order, _ = orders
+    return (st.schedule_values(solver._fwd, lv[:, fwd_order]),
+            st.schedule_values(solver._bwd, lv[:, bwd_order]))
 
 
 def batched_solves(solver, lt, vf, vb, b):
@@ -2567,7 +2577,9 @@ def batched_factor_and_solve(label: str, solver, ap, factorize, bt: int,
         raise AssertionError(f"{label}: the batch launched {launches}, one "
                              f"system {one_launches}")
 
-    (vf, vb, lt), t_vals = timed(lambda: batched_solve_values(solver, lv))
+    orders, t_orders = timed(lambda: solve_value_orders(solver))
+    lt = orders[2]
+    (vf, vb), t_vals = timed(lambda: batched_solve_values(solver, lv, orders))
     gen = torch.Generator(device=ap.device).manual_seed(seed + 1)
     x_true = torch.randn((bt, ap.rows, 8), generator=gen,
                          dtype=torch.float64, device=ap.device)
@@ -2589,14 +2601,14 @@ def batched_factor_and_solve(label: str, solver, ap, factorize, bt: int,
         compare(f"{label} system {b}: batched solve vs its own", x[b],
                 xb[0])
         one_ms.append(t * 1e3)
-    log(f"  {label}: solve values mapped in {t_vals:.3f} s (host order + "
-        f"device gather); solve of {bt} × 8 rhs "
+    log(f"  {label}: solve values: host orders {t_orders:.3f} s, device "
+        f"gather {t_vals:.3f} s; solve of {bt} × 8 rhs "
         + " / ".join(f"{t * 1e3:.1f}" for _, t in runs)
         + f" ms, {bt} single solves (a batch of one each) "
         f"{sum(one_ms):.1f} ms (" + " / ".join(f"{t:.1f}" for t in one_ms)
         + ") host clock (synchronised)")
     return {"operands": {"vf": vf, "vb": vb, "rhs": rhs, "x_true": x_true,
-                         "mats": mats},
+                         "mats": mats, "orders": orders, "ap": ap},
             "numeric_ms": t_batch * 1e3,
             "single_numeric_ms": sum(t_single) * 1e3,
             "solve_ms": [t * 1e3 for _, t in runs],
@@ -2761,6 +2773,15 @@ def batched_values_spmm(ap) -> dict:
     return {"ms": t_batch * 1e3, "single_ms": t_single * 1e3}
 
 
+def eager_factorize(factorize):
+    """``factorize`` run under :func:`eager_loops`: op by op, and not
+    counted towards a capture."""
+    def call(sched, values):
+        with eager_loops():
+            return factorize(sched, values)
+    return call
+
+
 def batched_values_phase(dev, solver, tree, gen) -> dict:
     """Phase 21 (a), (b), (d) and the batched kernels against their plain
     versions; (c) ran in the 1M-row operand's window. Returns the
@@ -2777,9 +2798,11 @@ def batched_values_phase(dev, solver, tree, gen) -> dict:
     use_config(ordering="nd")
     out = {}
     t0 = time.perf_counter()
+    # the factorizations as they ran before the numeric phases were
+    # captured (phase 23 holds the graphs against these)
     out["supernodal"] = batched_factor_and_solve(
         f"(a) supernodal {SOLVER_K}³ ND, Bt {BATCH}", solver, ap,
-        sn.factorize_supernodal, BATCH, SEED + 22)
+        eager_factorize(sn.factorize_supernodal), BATCH, SEED + 22)
     log(f"  [(a): {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     out["kernels"] = batched_kernels_vs_plain(solver, gen)
@@ -2793,7 +2816,7 @@ def batched_values_phase(dev, solver, tree, gen) -> dict:
     out["scatter"] = batched_factor_and_solve(
         f"(b) scatter-list tree n {tree_a.rows}, Bt {BATCH_TREE}",
         tree_solver, permute_symmetric(tree_a, tree_solver.perm),
-        sc.factorize, BATCH_TREE, SEED + 23)
+        eager_factorize(sc.factorize), BATCH_TREE, SEED + 23)
     log(f"  [(b), (d): {time.perf_counter() - t0:.1f} s]")
     use_config()
     return out
@@ -2808,12 +2831,14 @@ PCG_TOLS = (1e-6, 1e-5)         # the second only times the chunk sizes
 @contextlib.contextmanager
 def eager_loops():
     """The loops as they ran before they were captured: ``graphs.run``
-    calls its function directly, so every level loop, PCG and Chebyshev
-    runs op by op (the eager reference of phase 22)."""
+    calls its function directly, so every level loop, numeric phase, PCG,
+    Chebyshev, Lanczos and the QR iteration runs op by op (the eager
+    reference of phases 21-23), and no call is counted towards a
+    capture."""
     from basic_sparse_matrix_tpu_torch.runtime import graphs
 
     run = graphs.run
-    graphs.run = lambda owner, tag, fn, *operands: fn(*operands)
+    graphs.run = lambda owner, tag, fn, *operands, **_: fn(*operands)
     try:
         yield
     finally:
@@ -2836,11 +2861,21 @@ def fmt_ms(st: dict) -> str:
     return f"{st['min']:.2f} / {st['median']:.2f} / {st['max']:.2f}"
 
 
+# The ported kernels a captured numeric phase holds, by the name of their
+# __global__ function: K3 and the add-back's rect entry.
+KERNEL_NAMES = {"runs_read": "runs_read_kernel",
+                "addback_rects": "addback_rects_kernel"}
+# Parts of library kernel names that say which backend a dense factor took
+# (cuSOLVER's potrf and geqrf, cuBLAS's trsm, MAGMA's own kernels).
+LIBRARY_NAMES = ("potrf", "trsm", "geqrf", "orgqr", "larf", "magma")
+
+
 def device_busy(fn) -> dict:
     """One ``fn()`` under ``torch.profiler`` (device activity only): the
     device operations it ran (kernels, copies, fills: for a replay, the
-    launches its graphs hold) and their union of busy time over the
-    synchronised host window of the call."""
+    launches its graphs hold), the ported kernels among them by name
+    (``KERNEL_NAMES``), and their union of busy time over the synchronised
+    host window of the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2850,21 +2885,28 @@ def device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             busy += e - max(s, end)
             end = e
     return {"device_ops": len(spans), "busy_share": busy * 1e-6 / wall,
-            "profiled_ms": wall * 1e3}
+            "profiled_ms": wall * 1e3,
+            "kernels": {k: sum(name in e.name for e in events)
+                        for k, name in KERNEL_NAMES.items()},
+            "library": {k: n for k in LIBRARY_NAMES
+                        if (n := sum(k in e.name.lower() for e in events))}}
 
 
-def graph_vs_eager(name: str, graphed, check, eager=None) -> dict:
-    """The first graphed call (warm-up, capture, one replay) timed alone,
-    with the peak above its start and the memory its graphs keep (static
-    buffers and private pool: reserved bytes after ``empty_cache``); then
+def graph_vs_eager(name: str, graphed, check, eager=None,
+                   capture_on: int = 1) -> dict:
+    """The graphed calls up to the capturing one (``capture_on``: the first
+    for the solves, the second for the numeric phases, Lanczos and QR; the
+    capture = warm-up, capture, one replay) timed alone, with the peak
+    above their start and the memory their graphs keep (static buffers and
+    private pool: reserved bytes after ``empty_cache``); then
     ``GRAPH_RUNS`` eager calls (``eager``, by default ``graphed`` under
     ``eager_loops``) and replays in turns, the last replay held to the
     last eager result within ``GRAPH_ATOL_OF_MAX·max|ref|`` and passed to
@@ -2875,9 +2917,13 @@ def graph_vs_eager(name: str, graphed, check, eager=None) -> dict:
     reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    out, first = timed(graphed)
+    firsts = []
+    for _ in range(capture_on):
+        out, t = timed(graphed)
+        firsts.append(t)
+        del out
+    first = firsts[0]
     peak = torch.cuda.max_memory_allocated() - base
-    del out
     torch.cuda.empty_cache()
     kept = torch.cuda.memory_reserved() - reserved
     t_eager, t_graph = [], []
@@ -2893,12 +2939,18 @@ def graph_vs_eager(name: str, graphed, check, eager=None) -> dict:
            "first_call_s": first, "graph_gib": kept / 2**30,
            "first_call_peak_gib": peak / 2**30, "max_abs_err": err,
            "profile": graphed}
+    calls = (f"first call (warm-up + capture + replay) {first:.3f} s"
+             if capture_on == 1 else
+             f"first call (eager) {first:.3f} s, second (warm-up + capture "
+             f"+ replay) {firsts[-1]:.3f} s")
+    if capture_on > 1:
+        row["capture_call_s"] = firsts[-1]
     log(f"  {name}: eager {fmt_ms(row['eager_ms'])} ms, replay "
         f"{fmt_ms(row['replay_ms'])} ms (min / median / max of "
-        f"{GRAPH_RUNS}, in turns, synchronised host clock); first call "
-        f"(warm-up + capture + replay) {first:.3f} s; graphs keep "
-        f"{kept / 2**30:.4f} GiB (static buffers + private pool), "
-        f"first-call peak {peak / 2**30:.4f} GiB above its start")
+        f"{GRAPH_RUNS}, in turns, synchronised host clock); {calls}; "
+        f"graphs keep {kept / 2**30:.4f} GiB (static buffers + private "
+        f"pool), peak of those calls {peak / 2**30:.4f} GiB above their "
+        f"start")
     return row
 
 
@@ -2919,8 +2971,9 @@ def triangular_pair(fwd, bwd, values=None):
 
 def direct_graphs(label: str, solver, a, x_true, b8, out: dict):
     """A direct solver's solve as ``DirectSolver.solve`` runs it (permute,
-    forward, backward, permute back) at 1 and 8 rhs, on fresh copies of
-    its schedules (new graph owners, so the first call captures), graphed
+    forward, backward, permute back, the permutations gathers with the
+    solver's device tensors) at 1 and 8 rhs, on fresh copies of its
+    schedules (new graph owners, so the first call captures), graphed
     against eager and checked against phase 6's limits. Returns the
     copies."""
     import copy
@@ -2931,10 +2984,10 @@ def direct_graphs(label: str, solver, a, x_true, b8, out: dict):
     pair = triangular_pair(fwd, bwd)
 
     def solve(b):
-        if solver.perm is None:
+        if solver._gathers is None:
             return pair(b)
-        return apply_perm(pair(apply_perm(b, solver.perm)), solver.perm,
-                          inverse=True)
+        to_p, from_p = solver._gathers
+        return apply_perm(pair(apply_perm(b, to_p)), from_p)
     for name, b in (("1 rhs", b8[:, :1].contiguous()), ("8 rhs", b8)):
         key = f"{label} {name}"
         out[key] = graph_vs_eager(
@@ -3045,12 +3098,11 @@ def chebyshev_graphs(dev, out: dict) -> None:
 
 
 def compiled_loops_phase(dev, solver6, tree, batched_operands) -> dict:
-    """Phase 22: every graphed loop of this slice against its eager loop on
-    the same card in the same run, then one profiled replay of each
-    (device operations = the launches its graphs hold, busy share) and one
-    profiled eager supernodal solve. The profiler runs last: after a
-    profiled window, unprofiled walls of launch-bound loops in the same
-    process read slow."""
+    """Phase 22: every graphed loop of PR 11's slice against its eager loop
+    on the same card in the same run. Each row keeps under ``profile`` the
+    call that :func:`profile_rows` profiles after phase 23 (device
+    operations = the launches its graphs hold, busy share), with one eager
+    supernodal solve beside them."""
     from basic_sparse_matrix_tpu_torch import CSR
     from basic_sparse_matrix_tpu_torch.models import pcg
 
@@ -3088,22 +3140,202 @@ def compiled_loops_phase(dev, solver6, tree, batched_operands) -> dict:
     chebyshev_graphs(dev, out)
     log(f"  [Chebyshev: {time.perf_counter() - t0:.1f} s]")
 
-    t0 = time.perf_counter()
     eager_key = f"supernodal {SOLVER_K}³ ND solve 1 rhs"
-    profiles = {key: row.pop("profile") for key, row in out.items()}
-    profiles["eager " + eager_key] = eagerly(profiles[eager_key])
-    for key, fn in profiles.items():
-        if fn is None:
-            continue
-        row = out.setdefault(key, {})
-        row.update(device_busy(fn))
-        log(f"  {key}: one call profiled: {row['device_ops']} device "
-            f"operations, device busy {100 * row['busy_share']:.1f}% of the "
-            f"{row['profiled_ms']:.2f} ms window "
-            f"[{time.perf_counter() - t0:.1f} s]")
-    log(f"  [profiles: {time.perf_counter() - t0:.1f} s]")
+    out["eager " + eager_key] = {"profile": eagerly(out[eager_key]["profile"])}
     return out
 
+
+def profile_rows(phase: str, out: dict) -> None:
+    """One profiled call of each row's ``profile`` function (a replay, or
+    the eager solve of phase 22), in place: device operations, the ported
+    kernels by name, device busy share. Last in the run: after a profiled
+    window, unprofiled walls of launch-bound loops in the same process read
+    slow."""
+    t0 = time.perf_counter()
+    for key, row in out.items():
+        fn = row.pop("profile", None)
+        if fn is None:
+            continue
+        row.update(device_busy(fn))
+        log(f"  {phase} {key}: one call profiled: {row['device_ops']} device "
+            f"operations (K3 {row['kernels']['runs_read']}, rect entry "
+            f"{row['kernels']['addback_rects']}; library kernels by name "
+            f"{row['library']}), device busy "
+            f"{100 * row['busy_share']:.1f}% of the "
+            f"{row['profiled_ms']:.2f} ms window "
+            f"[{time.perf_counter() - t0:.1f} s]")
+    log(f"  [{phase} profiles: {time.perf_counter() - t0:.1f} s]")
+
+
+# ---- the compiled programs (phase 23) --------------------------------------
+PROGRAM_BATCH_TREE = 4          # (b): 21(b)'s batch
+LANCZOS_K = 32                  # (c)
+RITZ_REPLAY_REL = 1e-4          # (c): replayed Ritz values vs eager, of |λ|
+QR_K = 8                        # (e): the densified 8³ Laplacian, n = 512
+QR_ITERATIONS = 200
+
+
+def factor_graphs(label: str, sched, factorize, ap, values, solver, orders,
+                  x_true, out: dict) -> None:
+    """A numeric phase re-run on new values of ``ap``'s pattern (``values``
+    (nnz,) or (Bt, nnz)) on ``sched`` (a fresh owner: the first call runs
+    eagerly, the second captures), the replays against the eager loop; the
+    replayed factors' solves (the solver's batched triangular solves on
+    8 rhs a system) under phase 6's limits."""
+    batch = values if values.ndim == 2 else values[None]
+
+    def check(lv):
+        lv = lv if lv.ndim == 2 else lv[None]
+        vf, vb = batched_solve_values(solver, lv, orders)
+        mats = [with_values(ap, v) for v in batch]
+        rhs = torch.stack([matvec64(m, x_true).float() for m in mats])
+        x = batched_solves(solver, orders[2], vf, vb, rhs)
+        for b in range(len(mats)):
+            check_solution(f"{label}, system {b}: replayed factor's solve, "
+                           f"8 rhs", mats[b], x[b], x_true, rhs[b])
+    out[label] = graph_vs_eager(label, lambda: factorize(sched, values),
+                                check, capture_on=2)
+
+
+def programs_check_kernels(out: dict, profiled: dict) -> None:
+    """Each profiled numeric replay held the K3 and rect-entry launches of
+    its eager call."""
+    for label, want in profiled.items():
+        got = out[label]["kernels"]
+        log(f"  {label}: a replay holds K3 {got['runs_read']}, rect entry "
+            f"{got['addback_rects']} (by kernel name); the eager loop "
+            f"(21(a)) launched {want['runs_read']} and "
+            f"{want['addback_rects']}")
+        if got != want:
+            raise AssertionError(f"{label}: a replay holds {got}, the eager "
+                                 f"loop launched {want}")
+
+
+def lanczos_graphs(dev, out: dict) -> None:
+    """Lanczos(32) on phase 12's 33³ Laplacian through a fresh operator's
+    set-up, two seeded start vectors: Ritz values of each replay within
+    ``RITZ_REPLAY_REL·|λ|`` of the eager run."""
+    from basic_sparse_matrix_tpu_torch import CSR, SparseOperator
+    from basic_sparse_matrix_tpu_torch.models.lanczos import _ritz_values
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    setup = SparseOperator(CSR.from_coo_arrays((n, n), r, c, v,
+                                               device=dev))._ensure_lanczos()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    v0s = [torch.randn(n, generator=gen, device=dev) for _ in range(2)]
+
+    def ritz(v0):
+        return lambda: _ritz_values(setup, v0, LANCZOS_K)
+
+    def check_of(v0):
+        def check(got):
+            want = eagerly(ritz(v0))()
+            err = float(((got - want).abs() / want.abs()).max())
+            log(f"    Ritz values, replay vs eager: {err:.3e} of |λ| (limit "
+                f"{RITZ_REPLAY_REL:g})")
+            if not err <= RITZ_REPLAY_REL:
+                raise AssertionError("Lanczos replay: Ritz values off")
+        return check
+    key = f"Lanczos({LANCZOS_K}), {SOLVER_K}³"
+    out[key] = graph_vs_eager(key, ritz(v0s[0]), check_of(v0s[0]),
+                              capture_on=2)
+    check_of(v0s[1])(ritz(v0s[1])())
+
+
+def banded_graphs(dev, out: dict) -> None:
+    """The banded scan and BCR solves of phase 10's 33³ RCM matrix on fresh
+    solvers (the first solve of a shape captures), at 1 and 8 rhs, under
+    phase 6's limits."""
+    from basic_sparse_matrix_tpu_torch import CSR, prepare_direct
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
+    x_true, b8 = seeded_system(a, SEED + 4)
+    for backend in ("scan", "bcr"):
+        use_config(ordering="rcm", banded_solver=backend)
+        solver = prepare_direct(a)
+        for name, b in (("1 rhs", b8[:, :1].contiguous()), ("8 rhs", b8)):
+            key = f"{solver.kind} {SOLVER_K}³ RCM solve {name}"
+            out[key] = graph_vs_eager(
+                key, lambda b=b, solver=solver: solver.solve(b),
+                lambda x, b=b, key=key: check_solution(
+                    f"{key} replay", a, x, x_true, b))
+    use_config()
+
+
+def qr_graphs(dev, out: dict) -> None:
+    """The QR eigen-iteration, ``QR_ITERATIONS`` steps on the densified 8³
+    Laplacian (n = 512): the replay against the eager loop."""
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import qr
+
+    n, r, c, v = laplacian_3d(QR_K)
+    d = CSR.from_coo_arrays((n, n), r, c, v, device=dev).todense()
+
+    def check(got):
+        if got.shape != (n,) or not bool(torch.isfinite(got).all()):
+            raise AssertionError("QR iteration: a non-finite diagonal")
+        lam = torch.linalg.eigvalsh(d.double())
+        log(f"    diagonal after {QR_ITERATIONS} steps in "
+            f"[{float(got.min()):.4f}, {float(got.max()):.4f}] (spectrum "
+            f"[{float(lam[0]):.4f}, "
+            f"{float(lam[-1]):.4f}])")
+    key = f"QR iteration ({QR_ITERATIONS} steps), n {n}"
+    out[key] = graph_vs_eager(
+        key, lambda: qr.eigen_values_dense(d, QR_ITERATIONS), check,
+        capture_on=2)
+
+
+def compiled_programs_phase(dev, solver6, tree, operands,
+                            launches: dict) -> tuple:
+    """Phase 23: the numeric phases, Lanczos, the banded and BCR solves and
+    the QR iteration as replayed graphs against their eager loops, on the
+    smoke's full-size inputs. Returns the rows (each with its ``profile``
+    call for :func:`profile_rows`) and, for the supernodal rows, the K3 and
+    rect-entry launches a replay must hold: those of 21(a)'s eager
+    factorization (``launches``, one system's count at any batch)."""
+    import copy
+
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+
+    log("compiled programs (phase 23): the numeric phases, Lanczos, the "
+        "banded solves and the QR iteration as captured CUDA graphs against "
+        "their eager loops:")
+    out, profiled = {}, {}
+    t0 = time.perf_counter()
+    ops = operands["supernodal"]
+    sched = copy.copy(solver6.sched)      # a fresh owner: nothing counted
+    ap = ops["ap"]
+    want = {"runs_read": launches["runs_read"],
+            "addback_rects": launches["addback_resident"]
+            + launches["panel_addback"]}
+    for bt in (1, BATCH):
+        vals = shifted_values(ap, bt, SEED + 22)
+        label = f"supernodal {SOLVER_K}³ ND re-factorization, Bt {bt}"
+        factor_graphs(label, sched, sn.factorize_supernodal, ap,
+                      vals[0] if bt == 1 else vals, solver6, ops["orders"],
+                      ops["x_true"][0], out)
+        profiled[label] = want
+    log(f"  [(a) supernodal: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    tree_solver, tree_a = tree
+    ops = operands["scatter"]
+    sched = copy.copy(tree_solver.sched)
+    for bt in (1, PROGRAM_BATCH_TREE):
+        vals = shifted_values(ops["ap"], bt, SEED + 23)
+        factor_graphs(f"tree (n {tree_a.rows}) scatter-list "
+                      f"re-factorization, Bt {bt}",
+                      sched, sc.factorize, ops["ap"],
+                      vals[0] if bt == 1 else vals, tree_solver,
+                      ops["orders"], ops["x_true"][0], out)
+    log(f"  [(b) scatter-list: {time.perf_counter() - t0:.1f} s]")
+    for name, path in (("(c) Lanczos", lanczos_graphs),
+                       ("(d) banded", banded_graphs), ("(e) QR", qr_graphs)):
+        t0 = time.perf_counter()
+        path(dev, out)
+        log(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
+    return out, profiled
 
 
 def main() -> None:
@@ -3341,18 +3573,32 @@ def main() -> None:
                 "launches": batched["supernodal"]["launches"][k["name"]]}
     batched.pop("kernels")
     batched["spmm_rhs"] = batched_rhs
-    operands = batched["supernodal"].pop("operands")
-    batched["scatter"].pop("operands")
+    operands = {k: batched[k].pop("operands")
+                for k in ("supernodal", "scatter")}
     log("phase 21 summary: " + json.dumps(batched, default=float))
 
     # ---- 22. the compiled loops --------------------------------------------
     t0 = time.perf_counter()
     loops = compiled_loops_phase(dev, solver6, returned["scatter_tier"],
-                                 operands)
+                                 operands["supernodal"])
+    log(f"  [compiled_loops_phase: {time.perf_counter() - t0:.1f} s]")
+
+    # ---- 23. the compiled programs -----------------------------------------
+    t0 = time.perf_counter()
+    programs, profiled = compiled_programs_phase(
+        dev, solver6, returned["scatter_tier"], operands,
+        batched["supernodal"]["launches"])
+    log(f"  [compiled_programs_phase: {time.perf_counter() - t0:.1f} s]")
+    # the profiled calls of phases 22 and 23, last
+    t0 = time.perf_counter()
+    profile_rows("phase 22", loops)
+    profile_rows("phase 23", programs)
+    programs_check_kernels(programs, profiled)
     del solver6, returned, operands
     torch.cuda.empty_cache()
-    log(f"  [compiled_loops_phase: {time.perf_counter() - t0:.1f} s]")
+    log(f"  [profiles: {time.perf_counter() - t0:.1f} s]")
     log("phase 22 summary: " + json.dumps(loops, default=float))
+    log("phase 23 summary: " + json.dumps(programs, default=float))
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "
