@@ -986,11 +986,24 @@ _INT_TABLES = tuple(i for i, name in enumerate(_TABLE_NAMES)
                     if name != "top_valid")
 
 
+def long_tables(sched: SupernodalSchedule) -> Tuple[Tuple[torch.Tensor,
+                                                          ...], ...]:
+    """Every group's tables as the level step indexes with them (the int32
+    ones widened to int64), made once per schedule and kept on it for the
+    single-device and the sharded numeric phases. Casting them per call
+    put 12 copies a group into every captured numeric phase."""
+    cache = sched.__dict__.get("_long_tabs")
+    if cache is None:
+        cache = sched.__dict__["_long_tabs"] = tuple(
+            tuple(t.long() if i in _INT_TABLES else t
+                  for i, t in enumerate(tabs)) for tabs in sched.tabs)
+    return cache
+
+
 def _run_group(lvals, tabs, R: int, Rd: int, scratch: int,
                window: bool, smode: str, vshape=None, kread=()):
-    """The levels of one group in order (the JAX package's ``lax.scan``)."""
-    tabs = tuple(t.long() if i in _INT_TABLES else t
-                 for i, t in enumerate(tabs))
+    """The levels of one group in order (the JAX package's ``lax.scan``),
+    on the group's :func:`long_tables`."""
     for li in range(tabs[0].shape[0]):
         lvals = _level_step(lvals, tuple(t[li] for t in tabs), R, Rd,
                             scratch, window, smode, vshape, kread)
@@ -1144,6 +1157,7 @@ def factorize_supernodal(sched: SupernodalSchedule,
     if a_values.ndim not in (1, 2):
         raise ValueError(f"factorize_supernodal takes a_values (nnz,) or "
                          f"(Bt, nnz), got {tuple(a_values.shape)}")
+    long_tables(sched)
     return graphs.run(sched, numeric_tag(sched),
                       functools.partial(_factorize_whole, sched,
                                         *_numeric_modes(sched)),
@@ -1161,12 +1175,13 @@ def _factorize_whole(sched: SupernodalSchedule, window, mode: str, pad: int,
     """The numeric phase as one loop: A's values into ``lvals``, then every
     group's levels in order."""
     scratch = sched.nnz_l
+    tables = long_tables(sched)
     with matmul_precision():
         lvals = _init_lvals(sched, a_values, pad)
         for gi in range(sched.n_groups):
             sm = _group_delta(sched, gi, mode)
             win, kr = _group_read(sched, gi, window)
-            lvals = _run_group(lvals, sched.tabs[gi], sched.panel_rmax[gi],
+            lvals = _run_group(lvals, tables[gi], sched.panel_rmax[gi],
                                sched.delta_rmax[gi], scratch, win, sm,
                                sched.vmem_shape[gi] if sm == "vmem" else None,
                                kr)

@@ -12,9 +12,18 @@ power of two for 3 or 6 ranks through ``_pad_pow2``). Back-substitution
 mirrors it with one ``shift(-1)`` a level (no block after m - 1). Every
 product runs under :func:`matmul_precision` (TF32 off). No refinement step
 follows, as in the JAX package (the single-device ``BCRSolver`` adds one).
+
+On the card :func:`bcr_solve_sharded` (factorization and solve together,
+the JAX package's one jitted ``shard_map``) is one CUDA graph per mesh,
+operand shapes and matmul precision (``comm.compiled``; one owner for the
+module, keyed as ``jax.jit`` caches), captured on the second call.
+:func:`bcr_solve_sharded_csr` blocks the matrix on the host at every call
+and then replays that graph.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -24,9 +33,18 @@ from ..models import bcr as _bcr
 from ..models.banded import band_blocks, bandwidth, block_size_for
 from ..models.cholesky import cholesky_dense
 from ..ops.csr import CSR, to_tensor
+from ..runtime import graphs
 from ..utils.config import matmul_precision
 from ..utils.errors import IncorrectDimensions, check
+from .comm import compiled
 from .mesh import ROWS
+
+
+class _Programs:
+    """The owner of the sharded BCR graphs (one for the module)."""
+
+
+_BCR_SHARDED = _Programs()
 
 
 def _shift_from_prev_rank(comm, xs):
@@ -51,9 +69,18 @@ def bcr_solve_sharded(D: torch.Tensor, E: torch.Tensor, b: torch.Tensor,
     check(rows % held == 0 and per >= 1 and per & (per - 1) == 0,
           IncorrectDimensions,
           f"bcr_solve_sharded: m={m} must be ndev·2^q (ndev={ndev})")
+    return compiled(comm, _BCR_SHARDED,
+                    ("bcr_sharded",) + graphs.host_state(),
+                    functools.partial(_bcr_levels, comm, per), D, E,
+                    b.to(D.dtype), capture_on=2)
+
+
+def _bcr_levels(comm, per: int, D: torch.Tensor, E: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    ndev = comm.size
     dls = list(D.split(per))
     els = list(E.split(per))
-    bls = list(b.to(D.dtype).split(per))
+    bls = list(b.split(per))
     saved = []
     with matmul_precision():
         # local reduction: batched elimination + boundary shifts
@@ -92,14 +119,11 @@ def bcr_solve_sharded(D: torch.Tensor, E: torch.Tensor, b: torch.Tensor,
     return torch.cat(xs)
 
 
-def bcr_solve_sharded_csr(a: CSR, b, mesh, nb: int | None = None
-                          ) -> torch.Tensor:
-    """Block a banded SPD CSR (host), pad its block rows to ranks·2^q with
-    identity blocks, place each rank's blocks on the mesh's device and
-    solve. Returns the whole (n, k) solution (or (n,) for a vector ``b``)
-    on every process."""
-    comm = mesh.axis(ROWS)
-    ndev = comm.size
+def padded_band_blocks(a: CSR, ndev: int, nb: int | None = None):
+    """The diagonal and coupling blocks ``(D, E)`` of a banded CSR (host
+    numpy), its block rows padded to ``ndev``·2^q with identity blocks and
+    zero couplings: :func:`bcr_solve_sharded`'s operands for ``ndev``
+    ranks."""
     if nb is None:
         nb = block_size_for(bandwidth(a), a.rows)
     D, E = band_blocks(a, nb)
@@ -112,6 +136,19 @@ def bcr_solve_sharded_csr(a: CSR, b, mesh, nb: int | None = None
         pad[:, np.arange(nb), np.arange(nb)] = 1.0
         D = np.concatenate([D, pad])
     E = np.concatenate([E, np.zeros((mp - E.shape[0], nb, nb), D.dtype)])
+    return D, E
+
+
+def bcr_solve_sharded_csr(a: CSR, b, mesh, nb: int | None = None
+                          ) -> torch.Tensor:
+    """Block a banded SPD CSR (host), pad its block rows to ranks·2^q with
+    identity blocks, place each rank's blocks on the mesh's device and
+    solve. Returns the whole (n, k) solution (or (n,) for a vector ``b``)
+    on every process."""
+    comm = mesh.axis(ROWS)
+    ndev = comm.size
+    D, E = padded_band_blocks(a, ndev, nb)
+    mp, nb = D.shape[0], D.shape[1]
     b = torch.as_tensor(b).to(device=mesh.device, dtype=torch.float32)
     squeeze = b.ndim == 1
     if squeeze:

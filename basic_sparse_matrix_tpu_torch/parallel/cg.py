@@ -8,17 +8,22 @@ JAX package's ``1e-30`` floors.
 
 The iteration count is fixed, as in the JAX package (``fori_loop(0,
 iters)``); ``tol`` is accepted and unused there and here. Nothing is read
-back to the host inside the loop.
+back to the host inside the loop, so on the card the loop is one CUDA
+graph per ``ShardedCSR``, mesh, ``iters`` and shape (``comm.compiled``),
+captured on the first call and replayed on every later one.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from .comm import compiled
 from .mesh import ROWS
 from .sharded import ShardedCSR
-from .spmm import _on, local_spmv
+from .spmm import _on, local_spmv, prepare_local_spmv
 
 
 def gathered_matvec(sa: ShardedCSR, comm, ps):
@@ -39,7 +44,14 @@ def cg_solve_sharded(sa: ShardedCSR, b, mesh, iters: int = 50,
     replicated (its padded tail is zero); returns the replicated ``x`` of
     length ``padded_rows``."""
     comm = mesh.axis(ROWS)
-    b_full = padded_rhs(sa, b)
+    prepare_local_spmv(sa, comm)
+    return compiled(comm, sa, ("cg", int(iters)),
+                    functools.partial(_cg_loop, sa, comm, int(iters)),
+                    padded_rhs(sa, b))
+
+
+def _cg_loop(sa: ShardedCSR, comm, iters: int, b_full: torch.Tensor
+             ) -> torch.Tensor:
     m = len(comm.local)
     xs = [torch.zeros_like(b_full)] * m
     rs = [b_full] * m

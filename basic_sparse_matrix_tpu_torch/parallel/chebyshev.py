@@ -5,19 +5,26 @@ Chebyshev's scalars follow a fixed recurrence from the spectral bounds, so
 x, r and d stay row-sharded end to end: one all-gather of d per step (the
 matvec's operand), and one all-reduce after the loop for the residual
 norm. The bounds come from the sharded Lanczos, ``(0.95·lo, 1.01·hi)``.
+
+On the card the iterations and the residual are one CUDA graph per
+``ShardedCSR``, mesh, ``iters`` and shape (``comm.compiled``), captured on
+the first call; the bounds are a device operand, so new bounds replay the
+same graph.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .cg import padded_rhs
+from .comm import compiled
 from .lanczos import eigen_values_lanczos_sharded
 from .mesh import ROWS
 from .sharded import ShardedCSR, held_rows
-from .spmm import local_spmv
+from .spmm import local_spmv, prepare_local_spmv
 
 
 def chebyshev_sharded(sa: ShardedCSR, b_full: torch.Tensor, lam_min: float,
@@ -27,9 +34,18 @@ def chebyshev_sharded(sa: ShardedCSR, b_full: torch.Tensor, lam_min: float,
     taken in float32; returns (the held rows of x, relative residual as a
     0-d tensor)."""
     comm = mesh.axis(ROWS)
+    prepare_local_spmv(sa, comm)
+    bounds = torch.tensor([lam_min, lam_max], dtype=torch.float32,
+                          device=sa.device)
+    return compiled(comm, sa, ("chebyshev", int(iters)),
+                    functools.partial(_cheby_loop, sa, comm, int(iters)),
+                    b_full, bounds)
+
+
+def _cheby_loop(sa: ShardedCSR, comm, iters: int, b_full: torch.Tensor,
+                bounds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rps = sa.rows_per_shard
-    f32 = dict(dtype=torch.float32, device=sa.device)
-    lo, hi = torch.tensor(lam_min, **f32), torch.tensor(lam_max, **f32)
+    lo, hi = bounds[0], bounds[1]
     theta = (hi + lo) / 2.0
     delta = ((hi - lo) / 2.0).clamp_min(1e-30)
     sigma1 = theta / delta

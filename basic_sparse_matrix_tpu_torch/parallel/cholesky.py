@@ -19,11 +19,17 @@ guard ``where(diag > 0, 1/max(diag, 1e-30), 0)`` and the zeroed scratch
 slot are ``factor_levels``'. On the CPU the factor equals
 ``models.sparse_cholesky.factorize`` bit for bit; on the card the
 ``index_add_`` adds with atomics, in no fixed order.
+
+On the card the level loop is one CUDA graph per schedule, mesh, value
+shape, matmul precision and deterministic-algorithms flag
+(``comm.compiled``), captured on the second call, as the single-device
+``factorize`` is: the first call on a schedule runs op by op.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -35,6 +41,8 @@ from ..models.sparse_cholesky import (
     initial_lvals,
 )
 from ..ops.csr import CSR, to_tensor
+from ..runtime import graphs
+from .comm import compiled
 from .levels import gather_ragged, range_starts, split_levels
 from .mesh import ROWS
 
@@ -80,6 +88,13 @@ def factorize_sharded(sched: CholeskySchedule, a_values, mesh
     comm = mesh.axis(ROWS)
     sh = shard_levels(sched, comm.size)
     a_values = torch.as_tensor(a_values, device=sched.upd_dst.device)
+    return compiled(comm, sched, ("numeric_sharded",) + graphs.host_state(),
+                    functools.partial(_factorize_levels, sched, sh, comm),
+                    a_values, capture_on=2)
+
+
+def _factorize_levels(sched: CholeskySchedule, sh: CholeskyShards, comm,
+                      a_values: torch.Tensor) -> torch.Tensor:
     lvals = initial_lvals(sched, a_values)
     for ub, cb, ob in zip(sh.upd, sh.col, sh.off):
         if ub[-1] > ub[0]:
@@ -101,7 +116,9 @@ def factorize_sharded(sched: CholeskySchedule, a_values, mesh
         if ob[-1] > ob[0]:
             lvals[sched.col_off[ob[0]: ob[-1]]] = gather_ragged(
                 comm, offs, np.diff(ob))
-    lvals[-1] = 0.0
+    # fill_, not "= 0.0": a Python float assigned to a CUDA tensor is an
+    # upload, a host synchronisation that a graph capture refuses
+    lvals[-1].fill_(0.0)
     return lvals[:-1]
 
 

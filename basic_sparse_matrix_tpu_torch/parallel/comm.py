@@ -37,10 +37,30 @@ Member ``i`` of an axis of ``size`` members:
   ``i - offset``'s tensor, or zeros where no such member exists (JAX
   ``ppermute`` with pairs ``(i, i + offset)``: the open edge is filled with
   zeros). At size 1 (``offset != 0``) it returns zeros and posts nothing.
+
+Compiled programs. The JAX package runs each distributed loop as one
+``jax.jit(jax.shard_map(...))`` program; the port records it as one CUDA
+graph (``runtime/graphs.py``) through :func:`compiled`. A communicator
+gives the graph three things:
+
+* ``capturable``: whether its collectives can be recorded. ``LocalComm``'s
+  are plain tensor operations; a ``TorchDistComm``'s only where its backend
+  is NCCL (gloo's collectives copy through the host, which a capture
+  refuses), decided from the backend up front. A communicator that is not
+  capturable runs the program op by op.
+* ``graph_key``: its part of the graph's tag, so that one owner's graphs on
+  two meshes, and its sharded and single-device graphs, never share a key.
+* ``graph_owner(owner)``: where the graphs are kept. ``LocalComm`` has no
+  state and keeps them on ``owner`` (a schedule, a ``ShardedCSR``).
+  A ``TorchDistComm``'s graphs hold NCCL kernels recorded on its process
+  group, so it keeps them itself, one holder per owner: they go when
+  either the communicator or the owner goes, and a call after the process
+  group was destroyed raises instead of replaying.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import List, Sequence
 
 import torch
@@ -56,12 +76,21 @@ def _ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 class LocalComm:
     """Every member of the axis in this process."""
 
+    capturable = True
+
     def __init__(self, size: int):
         if size < 1:
             raise ValueError(f"a mesh axis needs at least 1 member, got "
                              f"{size}")
         self.size = int(size)
         self.local: List[int] = list(range(self.size))
+
+    @property
+    def graph_key(self) -> tuple:
+        return ("local", self.size)
+
+    def graph_owner(self, owner):
+        return owner
 
     def all_gather(self, xs: Sequence[torch.Tensor], tiled: bool = True
                    ) -> List[torch.Tensor]:
@@ -89,11 +118,44 @@ class TorchDistComm:
     whole world)."""
 
     def __init__(self, ranks: Sequence[int], index: int, group=None):
+        import torch.distributed as dist
+
         self.ranks = [int(r) for r in ranks]
         self.size = len(self.ranks)
         self.index = int(index)
         self.group = group
         self.local: List[int] = [self.index]
+        # the process group the collectives run on, held so that its
+        # identity in graph_key is not reused while this communicator lives
+        self._pg = dist.group.WORLD if group is None else group
+        self.backend = str(dist.get_backend(self._pg))
+        self._graph_owners = weakref.WeakKeyDictionary()
+
+    @property
+    def capturable(self) -> bool:
+        """NCCL collectives can be recorded in a CUDA graph; gloo's cannot
+        (they stage CUDA tensors through the host)."""
+        return self.backend == "nccl"
+
+    @property
+    def graph_key(self) -> tuple:
+        return ("dist", self.backend, tuple(self.ranks), self.index,
+                id(self._pg))
+
+    def graph_owner(self, owner):
+        """The holder of the graphs this communicator records for
+        ``owner``, kept here: a graph never outlives the communicator whose
+        NCCL calls it holds."""
+        import torch.distributed as dist
+
+        if not (dist.is_initialized() and (self.group is not None
+                                           or dist.group.WORLD is self._pg)):
+            raise RuntimeError("TorchDistComm: its process group was "
+                               "destroyed; make a new mesh")
+        holder = self._graph_owners.get(owner)
+        if holder is None:
+            holder = self._graph_owners[owner] = _GraphHolder()
+        return holder
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
@@ -153,3 +215,24 @@ class TorchDistComm:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         return [buf]
+
+
+class _GraphHolder:
+    """The graphs one ``TorchDistComm`` recorded for one owner."""
+
+
+def compiled(comm, owner, tag: tuple, fn, *operands, capture_on: int = 1):
+    """``fn(*operands)``, the per-process body of a distributed program, as
+    one compiled program: on CUDA operands and a capturable ``comm`` the
+    CUDA graph of ``runtime/graphs.py`` kept for ``owner`` under ``tag``
+    and the communicator's key, captured on the ``capture_on``-th call
+    (the JAX package's ``jax.jit(jax.shard_map(...))``); otherwise op by
+    op. ``fn`` follows ``graphs.run``'s rules: it reads device values only
+    through its operands and tensors the owner keeps, writes none of its
+    operands and reads nothing back to the host."""
+    if not comm.capturable:
+        return fn(*operands)
+    from ..runtime import graphs
+
+    return graphs.run(comm.graph_owner(owner), tuple(tag) + comm.graph_key,
+                      fn, *operands, capture_on=capture_on)

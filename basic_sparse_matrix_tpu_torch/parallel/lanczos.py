@@ -16,18 +16,28 @@ torch cannot reproduce. :func:`lanczos_sharded` draws it from a
 ``torch.Generator`` (``generator``, or one seeded with ``seed`` on the
 mesh's device); :func:`lanczos_sharded_from` takes a given ``v0``, so the
 two packages agree given the same vector.
+
+On the card the k steps are one CUDA graph per ``ShardedCSR``, mesh, k,
+``n``, matmul precision and start-vector shape (``comm.compiled``; the JAX
+package's ``lax.scan`` under ``jax.jit``), captured on the second call as
+the single-device Lanczos is; the Ritz values (``eigvalsh``) are computed
+outside it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 
+from ..runtime import graphs
 from ..utils.config import matmul_precision
 from .cg import gathered_matvec
+from .comm import compiled
 from .mesh import ROWS
 from .sharded import ShardedCSR
+from .spmm import prepare_local_spmv
 
 _EPS = 1e-7
 
@@ -52,6 +62,16 @@ def lanczos_sharded_from(sa: ShardedCSR, v0: torch.Tensor, k: int, mesh,
     ``padded_rows``); returns (alphas (k,), betas (k-1,))."""
     comm = mesh.axis(ROWS)
     n = sa.rows if n is None else n
+    prepare_local_spmv(sa, comm)
+    v0 = torch.as_tensor(v0, dtype=torch.float32, device=sa.device)
+    return compiled(comm, sa, ("lanczos", int(k), int(n))
+                    + graphs.host_state(),
+                    functools.partial(_lanczos_steps, sa, comm, int(k),
+                                      int(n)), v0, capture_on=2)
+
+
+def _lanczos_steps(sa: ShardedCSR, comm, k: int, n: int, v0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     pr, rps = sa.padded_rows, sa.rows_per_shard
     dev = sa.device
     live = (torch.arange(pr, device=dev) < n).float()
@@ -62,7 +82,7 @@ def lanczos_sharded_from(sa: ShardedCSR, v0: torch.Tensor, k: int, mesh,
         return [x[s * rps: (s + 1) * rps] for s, x in zip(comm.local, xs)]
 
     with matmul_precision():
-        v = torch.as_tensor(v0, dtype=torch.float32, device=dev) * live
+        v = v0 * live
         v = v / torch.linalg.norm(v).clamp_min(1e-30)
         vjs = [v] * m
         Vs = []

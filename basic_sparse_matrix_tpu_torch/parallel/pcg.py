@@ -11,18 +11,25 @@ collective, so a step's only communication stays the matvec's all-gather.
 The factor and the solves are ``torch.linalg.cholesky`` and
 ``solve_triangular`` (XLA-level ops in the JAX package), run under
 :func:`~..utils.config.matmul_precision` (TF32 off).
+
+On the card the iterations are one CUDA graph per ``ShardedCSR``, mesh,
+``iters`` and shape (``comm.compiled``), captured on the first call, with
+``lfac`` an operand; the factors themselves are built once, outside it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from ..utils.config import matmul_precision
 from .cg import gathered_matvec, padded_rhs
+from .comm import compiled
 from .mesh import ROWS
 from .sharded import ShardedCSR
+from .spmm import prepare_local_spmv
 
 
 def _local_diag_block(sa: ShardedCSR, s: int) -> torch.Tensor:
@@ -57,8 +64,15 @@ def pcg_solve_sharded(sa: ShardedCSR, b, mesh, iters: int = 50,
     if lfac is None:
         lfac = build_block_jacobi(sa, mesh)
     comm = mesh.axis(ROWS)
+    prepare_local_spmv(sa, comm)
+    return compiled(comm, sa, ("pcg", int(iters)),
+                    functools.partial(_pcg_loop, sa, comm, int(iters)),
+                    padded_rhs(sa, b), lfac)
+
+
+def _pcg_loop(sa: ShardedCSR, comm, iters: int, b_full: torch.Tensor,
+              lfac: torch.Tensor) -> torch.Tensor:
     rps = sa.rows_per_shard
-    b_full = padded_rhs(sa, b)
     m = len(comm.local)
 
     def apply_m_inv(rs):

@@ -32,6 +32,13 @@ Results are row-sharded: a function returns the rows this process holds
 (``sharded.held_rows``), which on a local mesh is the whole padded
 ``(padded_rows, n)`` array, as JAX's global array; trim it with
 ``unshard_rows``.
+
+The ring (the JAX package's ``jax.jit(jax.shard_map(fori_loop))``) runs op
+by op on the card, unlike ``parallel/``'s other loops: a CUDA graph of it
+must copy B into its static buffers and clone the (rows, n) result, and at
+1M × 512 that costs more than the launches it saves (``PERF.md`` §5, phase
+24(f) of ``chip_smoke.py``, which times such a graph beside the eager
+call).
 """
 
 from __future__ import annotations
@@ -55,12 +62,27 @@ def local_spmm(a: CSR, b: torch.Tensor) -> torch.Tensor:
     return spmm_auto(a, b) if b.is_cuda else spmm(a, b)
 
 
+def _spmv_ell(a: CSR) -> bool:
+    return bool(a.stored) and ell_overhead(a) <= get_config().ell_max_overhead
+
+
 def local_spmv(a: CSR, x: torch.Tensor) -> torch.Tensor:
     """One rank's SpMV: ELL gather + row reduce where the padding overhead
     permits, else the gather/segment sum."""
-    if a.stored and ell_overhead(a) <= get_config().ell_max_overhead:
+    if _spmv_ell(a):
         return spmv_ell(cached_ell(a), x)
     return spmv(a, x)
+
+
+def prepare_local_spmv(sa: ShardedCSR, comm) -> None:
+    """Build, once, what :func:`local_spmv` reads for each held shard: its
+    CSR and, where taken, its ELL layout. Both are host work and uploads,
+    which a graph's warm-up refuses, so a compiled loop calls this
+    first."""
+    for s in comm.local:
+        a = sa.local(s)
+        if _spmv_ell(a):
+            cached_ell(a)
 
 
 def _on(x, sa: ShardedCSR) -> torch.Tensor:

@@ -27,9 +27,18 @@ Routing stays per group under the config's ``supernodal_gather`` and
 gets ``factorize_supernodal``'s tail padding, so K3 windows and add-back
 rows never clamp into live data. The JAX package pads each level's batch
 to a multiple of the mesh size and merges every phase by ``psum``.
+
+On the card the whole phase is one CUDA graph per schedule, mesh, value
+shape and configuration (``comm.compiled``; the tag is the single-device
+``numeric_tag`` with ``"sharded"`` and the communicator's key), captured
+on the second call as ``factorize_supernodal`` is. K3 and the rect entry
+launch inside it. The int64 tables are the schedule's
+(``supernodal.long_tables``), shared with the single-device phase.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +51,7 @@ from ..models.supernodal import (
 )
 from ..ops.csr import CSR
 from ..utils.config import matmul_precision
+from .comm import compiled
 from .levels import gather_ragged, split_levels
 from .mesh import ROWS
 
@@ -84,7 +94,9 @@ def _level_sharded(lvals, tabs, comm, R: int, Rd: int, scratch: int,
                  for u3 in prods]
         sn._element_scatter(lvals, gather_ragged(comm, prods, np.diff(ub)),
                             base, meta, irows, ibelow, jrows, jcp, scratch)
-    lvals[scratch] = 0.0
+    # fill_, not "= 0.0": assigning a Python float to a CUDA tensor uploads
+    # it, a host synchronisation that a graph capture refuses
+    lvals[scratch].fill_(0.0)
 
     # 2) each rank's slice of the panel batch, gathered in rank order
     tp, bp = sn._panel_positions(cp, r_tab, tv, R, scratch)
@@ -103,7 +115,7 @@ def _level_sharded(lvals, tabs, comm, R: int, Rd: int, scratch: int,
     counts = np.diff(sb)
     lvals[tp] = gather_ragged(comm, tops, counts)
     lvals[bp] = gather_ragged(comm, belows, counts)
-    lvals[scratch] = 0.0
+    lvals[scratch].fill_(0.0)
 
 
 def factorize_supernodal_sharded(sched: SupernodalSchedule, a_values,
@@ -112,20 +124,28 @@ def factorize_supernodal_sharded(sched: SupernodalSchedule, a_values,
     """Distributed numeric phase on the schedule's device: L's flat CSC
     value array (length ``nnz_l``), replicated. ``chunk_groups`` bounds
     each compiled XLA program to that many schedule groups in the JAX
-    package; PyTorch runs eagerly, so it is accepted and changes
-    nothing."""
+    package; a CUDA graph has no such limit, so it is accepted and changes
+    nothing (the phase is one graph on the card, op by op elsewhere)."""
     comm = mesh.axis(ROWS)
-    window, mode, pad = sn._numeric_modes(sched)
-    scratch = sched.nnz_l
     a_values = torch.as_tensor(a_values, device=sched.a_src_pos.device)
+    sn.long_tables(sched)
+    return compiled(comm, sched, sn.numeric_tag(sched) + ("sharded",),
+                    functools.partial(_factorize_levels, sched, comm,
+                                      *sn._numeric_modes(sched)),
+                    a_values, capture_on=2)
+
+
+def _factorize_levels(sched: SupernodalSchedule, comm, window, mode: str,
+                      pad: int, a_values: torch.Tensor) -> torch.Tensor:
+    scratch = sched.nnz_l
+    tables = sn.long_tables(sched)
     with matmul_precision():
         lvals = sn._init_lvals(sched, a_values, pad)
         for gi in range(sched.n_groups):
             smode = sn._group_delta(sched, gi, mode)
             win, kread = sn._group_read(sched, gi, window)
             vshape = sched.vmem_shape[gi] if smode == "vmem" else None
-            tabs = tuple(t.long() if i in sn._INT_TABLES else t
-                         for i, t in enumerate(sched.tabs[gi]))
+            tabs = tables[gi]
             for li in range(tabs[0].shape[0]):
                 _level_sharded(lvals, tuple(t[li] for t in tabs), comm,
                                sched.panel_rmax[gi], sched.delta_rmax[gi],

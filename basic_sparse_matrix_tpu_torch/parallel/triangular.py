@@ -15,11 +15,18 @@ entries are the matching sub-range of the level's entries (entries are
 sorted by row slot). Each rank's per-row arithmetic is the single-device
 solve's, so on the CPU the result equals ``solve_triangular_sparse`` bit
 for bit.
+
+On the card the level loop is one CUDA graph per schedule, mesh and
+right-hand-side shape (``comm.compiled``), captured on the first call and
+replayed on every later one, as the single-device solve is; the rank
+splits are host numbers fixed per schedule, so they are part of the
+recorded program.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -27,6 +34,7 @@ import torch
 from ..models.sparse_triangular import TriangularSchedule, build_schedule
 from ..ops.csr import CSR, to_tensor
 from ..utils.errors import IncorrectDimensions, check
+from .comm import compiled
 from .levels import gather_ragged, range_starts, split_levels
 from .mesh import ROWS
 
@@ -76,6 +84,14 @@ def solve_triangular_sharded(sched: TriangularSchedule, b,
     squeeze = b.ndim == 1
     if squeeze:
         b = b[:, None]
+    x = compiled(comm, sched, ("solve_sharded",),
+                 functools.partial(_solve_levels, sched, sh, comm), b)
+    return x[:, 0] if squeeze else x
+
+
+def _solve_levels(sched: TriangularSchedule, sh: TriangularShards, comm,
+                  b: torch.Tensor) -> torch.Tensor:
+    """The level loop on (n, k) ``b``."""
     # y holds the unknowns in level order: level l is y[row_ptr[l]:...]
     y = b.index_select(0, sched.rows)
     vals = sched.vals[:, None]
@@ -93,8 +109,7 @@ def solve_triangular_sharded(sched: TriangularSchedule, b,
                 part.index_add_(0, sh.seg[e0:e1], prod, alpha=-1)
             parts.append(part.mul_(inv_diag[r0:r1]))
         y[rb[0]: rb[-1]] = gather_ragged(comm, parts, np.diff(rb))
-    x = torch.empty_like(y).index_copy_(0, sched.rows, y)
-    return x[:, 0] if squeeze else x
+    return torch.empty_like(y).index_copy_(0, sched.rows, y)
 
 
 def solve_sparse_distributed(l: CSR, b, mesh, *,

@@ -20,7 +20,16 @@ the host issues one graph launch per call. The loops and their owners:
 * the banded scan solve and the BCR solve (``models/banded``,
   ``models/bcr``), owners the ``BandedFactor`` and the ``BCRSolver``;
 * the QR eigen-iteration (``models/qr``), one owner for the module, keyed
-  by the operand's shape and dtype as ``jax.jit`` caches.
+  by the operand's shape and dtype as ``jax.jit`` caches;
+* the distributed programs of ``parallel/`` (``jax.jit(jax.shard_map(...))``
+  in the JAX package), through ``parallel/comm.py::compiled``, which adds
+  the communicator's key to the tag: the sharded triangular solve (owner
+  the ``TriangularSchedule``), the sharded scatter-list and supernodal
+  numeric phases (the ``CholeskySchedule``, the ``SupernodalSchedule``),
+  CG, PCG, Chebyshev and Lanczos (the ``ShardedCSR``) and the sharded BCR
+  solve (one owner for the module). A ``TorchDistComm`` over NCCL keeps
+  its graphs on a holder of its own per owner, so that they go with it; a
+  gloo communicator runs the programs op by op.
 
 Rules:
 
@@ -70,8 +79,12 @@ from typing import Callable, Tuple
 import torch
 
 # Graphs kept per owner; the least recently used goes first. Four covers a
-# schedule's usual callers: 1 and k right-hand sides, one batched shape
-# and its batch of one.
+# schedule's usual callers, which serve either one device or one mesh: 1
+# and k right-hand sides, one batched shape and its batch of one; a
+# numeric phase at one or two value shapes beside its sharded phase; a
+# ShardedCSR's CG, PCG, Chebyshev and Lanczos at one iteration count each.
+# A schedule that serves one device and a mesh at two shapes each is at
+# the limit; a fifth key evicts the oldest, which then captures anew.
 MAX_GRAPHS_PER_OWNER = 4
 
 

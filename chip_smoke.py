@@ -256,6 +256,31 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     Phase 6 and the other solver phases call the graphed solves too: the
     first solve of each shape there captures.
 
+23. Compiled programs (the numeric phases, Lanczos, the banded and BCR
+    solves, the QR iteration; see ``compiled_programs_phase``).
+
+24. The distributed compiled programs of ``parallel/`` (each captured
+    through ``parallel/comm.py::compiled``), each against the same call
+    under ``eager_loops()`` in turns, on the inputs of phases 19(b) and
+    20(a)-(c): (a) ``factorize_supernodal_sharded`` on a copy of phase 6's
+    33³ ND schedule at 4 logical shards (the second call captures; within
+    1e-5·max|ref| of the single-device factor; a replay holds 20(a)'s eager
+    K3 and rect-entry launches by kernel name) and the distributed solves
+    on copies of phase 6's triangular schedules at 1 and 8 rhs; (b) the
+    same for the 10⁶-node tree's scatter-list phase; (c)
+    ``DistributedOperator`` at 8 shards: CG, PCG, Chebyshev (new bounds
+    must replay the same graph) and Lanczos(32); (d) ``bcr_solve_sharded``
+    on the 33³ RCM blocks at 1 and 8 rhs; (e) over NCCL at world size 1
+    every program's capture and replay bit for bit against eager
+    ``LocalComm`` at one shard (deterministic algorithms; the supernodal
+    factor within 1e-6·max|ref|), the graphs dropped with the
+    communicator; (f) ``spmm_ring`` at 4 shards and ``spmm_ring_2d`` at 2 ×
+    2 on phase 19's 1M-row operand and B (kept to the end for this), op by
+    op as the port runs them, against CUDA graphs of the same calls made
+    in the smoke (the measurement behind keeping them op by op). Phase
+    19 runs under ``eager_loops()`` and phase 20 runs its sharded calls
+    under it, so their numbers stay eager.
+
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
 once, each output written once; for data-dependent work what this run's data
@@ -1912,7 +1937,7 @@ def parallel_spmm(a_st, b_st, ref) -> dict:
                                    iters=3)
     log(f"  single-device mul_dense on the same operand: "
         f"{ms['mul_dense']:.3f} ms a call (CUDA events, median of 3)")
-    return ms
+    return ms, (sa, sa2, b_st, mesh, mesh2)
 
 
 def nccl_up() -> None:
@@ -2126,23 +2151,27 @@ def same_csr(name: str, got, want) -> None:
         raise AssertionError(f"{name}: values differ")
 
 
-def parallel_phase(dev, a_st, b_st, ref) -> dict:
+def parallel_phase(dev, a_st, b_st, ref) -> tuple:
     """Phase 19: the distributed layer on the card; the launch counts are
-    set to 0 right before and read right after."""
+    set to 0 right before and read right after. The phase runs under
+    ``eager_loops()``, as it ran before its programs were graphed (phase
+    24 replays them). Returns (a)'s ms and the rings' operands (phase
+    24(f))."""
     log("parallel/ (phase 19): logical shards on one card (LocalComm), "
         "NCCL at world size 1 (TorchDistComm):")
     t0 = time.perf_counter()
     base = fresh_peak()
     zero_launches()
-    ms = parallel_spmm(a_st, b_st, ref)
-    log_peak("  (a) SpMM strategies", base)
-    nccl_ring(a_st, b_st)
-    parallel_serving(dev)
+    with eager_loops():
+        ms, ring = parallel_spmm(a_st, b_st, ref)
+        log_peak("  (a) SpMM strategies", base)
+        nccl_ring(a_st, b_st)
+        parallel_serving(dev)
     launches = read_launches()
     log(f"  phase 19 launches: {launches}; {time.perf_counter() - t0:.1f} s")
     if launches["spmm_stream"] < 1:
         raise AssertionError("phase 19 launched no K2")
-    return ms
+    return ms, ring
 
 
 # ---- 20. parallel/: the distributed direct solvers and BCR -----------------
@@ -2194,6 +2223,7 @@ def solve_pair(label: str, l, a, x_true, b8, mesh, single) -> dict:
 
     b1 = b8[:, 0].contiguous()
 
+    @eagerly
     def entry():
         y = pt.solve_sparse_distributed(l, b1, mesh, lower=True)
         return pt.solve_sparse_distributed(l.transpose(), y, mesh,
@@ -2207,7 +2237,7 @@ def solve_pair(label: str, l, a, x_true, b8, mesh, single) -> dict:
         st.build_schedule(l.transpose(), lower=False)))
     ms = {"entry_1rhs_s": t_entry, "schedules_s": t_sched}
     for name, b in (("1 rhs", b1), ("8 rhs", b8)):
-        runs = [timed(lambda: dist_solves(fwd, bwd, b, mesh))
+        runs = [timed(eagerly(lambda: dist_solves(fwd, bwd, b, mesh)))
                 for _ in range(2)]
         x = runs[-1][0]
         check_solution(f"{label} distributed solve {name}", a, x, x_true, b)
@@ -2260,8 +2290,8 @@ def supernodal_sharded(dev, mesh) -> dict:
             levels[mode] += int(sched.tabs[gi][0].shape[0])
     x_true, b8 = seeded_system(ap, SEED + 20)
     zero_launches()
-    lv, t_dist = timed(lambda: ps.factorize_supernodal_sharded(
-        sched, ap.values, mesh))
+    lv, t_dist = timed(eagerly(lambda: ps.factorize_supernodal_sharded(
+        sched, ap.values, mesh)))
     launches = read_launches()
     close_of_max(f"factorize_supernodal_sharded at {DIRECT_SHARDS} shards vs "
                  f"factorize_supernodal", lv, single,
@@ -2310,7 +2340,8 @@ def scatter_sharded(dev, mesh) -> dict:
         f" {sched.n_levels} levels, {sched.n_triples} triples")
     single, t_single = timed(eagerly(lambda: sc.factorize(sched,
                                                           ap.values)))
-    lv, t_dist = timed(lambda: pc.factorize_sharded(sched, ap.values, mesh))
+    lv, t_dist = timed(eagerly(lambda: pc.factorize_sharded(
+        sched, ap.values, mesh)))
     close_of_max(f"factorize_sharded at {DIRECT_SHARDS} shards vs factorize",
                  lv, single, DIRECT_FACTOR_ATOL_OF_MAX)
     log(f"  numeric: sharded {t_dist * 1e3:.1f} ms, single device "
@@ -2350,7 +2381,8 @@ def bcr_sharded(dev, mesh) -> dict:
         f"({log_timings(solver.timings)})")
     ms = {}
     for name, b in (("1 rhs", b8[:, 0].contiguous()), ("8 rhs", b8)):
-        runs = [timed(lambda: pb.bcr_solve_sharded_csr(ap, b, mesh))
+        runs = [timed(eagerly(lambda: pb.bcr_solve_sharded_csr(ap, b,
+                                                               mesh)))
                 for _ in range(2)]
         x = runs[-1][0]
         on_card(f"bcr_solve_sharded_csr {name}", x)
@@ -2454,7 +2486,8 @@ def same_bits(name: str, got, want) -> None:
 def direct_parallel_phase(dev) -> dict:
     """Phase 20: the distributed direct solvers and BCR on the card at full
     width (4 logical shards), NCCL at world size 1, the dry run; returns
-    (a)'s launch counts."""
+    (a)'s launch counts. The sharded calls run under ``eager_loops()``, as
+    they ran before they were graphed (phase 24 replays them)."""
     from basic_sparse_matrix_tpu_torch.parallel.dryrun import dryrun_multichip
     from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
 
@@ -2469,9 +2502,9 @@ def direct_parallel_phase(dev) -> dict:
         torch.cuda.empty_cache()
         log(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    nccl_direct(dev)
+    eagerly(lambda: nccl_direct(dev))()
     log(f"  [nccl: {time.perf_counter() - t0:.1f} s]")
-    _, t = timed(lambda: dryrun_multichip(8))
+    _, t = timed(eagerly(lambda: dryrun_multichip(8)))
     log(f"(e) dryrun_multichip(8) on {dev}, the direct and BCR steps "
         f"included: ran to its end in {t:.2f} s")
     log("phase 20 summary: " + json.dumps(out, default=float))
@@ -2861,10 +2894,11 @@ def fmt_ms(st: dict) -> str:
     return f"{st['min']:.2f} / {st['median']:.2f} / {st['max']:.2f}"
 
 
-# The ported kernels a captured numeric phase holds, by the name of their
-# __global__ function: K3 and the add-back's rect entry.
-KERNEL_NAMES = {"runs_read": "runs_read_kernel",
-                "addback_rects": "addback_rects_kernel"}
+# The ported kernels a captured program holds, by the names of their
+# __global__ functions: K3, the add-back's rect entry, K2 (tile, sliced).
+KERNEL_NAMES = {"runs_read": ("runs_read_kernel",),
+                "addback_rects": ("addback_rects_kernel",),
+                "spmm_stream": ("stream_spmm_kernel", "stream_sliced_kernel")}
 # Parts of library kernel names that say which backend a dense factor took
 # (cuSOLVER's potrf and geqrf, cuBLAS's trsm, MAGMA's own kernels).
 LIBRARY_NAMES = ("potrf", "trsm", "geqrf", "orgqr", "larf", "magma")
@@ -2894,8 +2928,9 @@ def device_busy(fn) -> dict:
             end = e
     return {"device_ops": len(spans), "busy_share": busy * 1e-6 / wall,
             "profiled_ms": wall * 1e3,
-            "kernels": {k: sum(name in e.name for e in events)
-                        for k, name in KERNEL_NAMES.items()},
+            "kernels": {k: sum(any(n in e.name for n in names)
+                               for e in events)
+                        for k, names in KERNEL_NAMES.items()},
             "library": {k: n for k in LIBRARY_NAMES
                         if (n := sum(k in e.name.lower() for e in events))}}
 
@@ -3145,24 +3180,43 @@ def compiled_loops_phase(dev, solver6, tree, batched_operands) -> dict:
     return out
 
 
-def profile_rows(phase: str, out: dict) -> None:
+# torch.profiler loses device events now and then in long windows (a Bt 8
+# replay of ≈ 62,000 events once showed 1,536 of its 1,542 K3 launches): a
+# lost event only lowers a count, so a row whose kernels are checked is
+# profiled again, up to this many times, while a count falls short.
+PROFILE_TRIES = 3
+
+
+def profile_rows(phase: str, out: dict, want=None) -> None:
     """One profiled call of each row's ``profile`` function (a replay, or
-    the eager solve of phase 22), in place: device operations, the ported
-    kernels by name, device busy share. Last in the run: after a profiled
-    window, unprofiled walls of launch-bound loops in the same process read
-    slow."""
+    an eager call), in place: device operations, the ported kernels by
+    name, device busy share. A row named in ``want`` (kernel counts it must
+    hold) is profiled again while a count falls short, its counts the
+    largest seen (``profiles`` = the calls profiled). Last in the run:
+    after a profiled window, unprofiled walls of launch-bound loops in the
+    same process read slow."""
     t0 = time.perf_counter()
     for key, row in out.items():
         fn = row.pop("profile", None)
         if fn is None:
             continue
         row.update(device_busy(fn))
+        need = (want or {}).get(key, {})
+        row["profiles"] = 1
+        while row["profiles"] < PROFILE_TRIES and any(
+                row["kernels"][k] < n for k, n in need.items()):
+            again = device_busy(fn)["kernels"]
+            row["kernels"] = {k: max(v, again[k])
+                              for k, v in row["kernels"].items()}
+            row["profiles"] += 1
         log(f"  {phase} {key}: one call profiled: {row['device_ops']} device "
             f"operations (K3 {row['kernels']['runs_read']}, rect entry "
-            f"{row['kernels']['addback_rects']}; library kernels by name "
+            f"{row['kernels']['addback_rects']}, K2 "
+            f"{row['kernels']['spmm_stream']}; library kernels by name "
             f"{row['library']}), device busy "
             f"{100 * row['busy_share']:.1f}% of the "
-            f"{row['profiled_ms']:.2f} ms window "
+            f"{row['profiled_ms']:.2f} ms window; kernels the largest of "
+            f"{row['profiles']} profiled calls "
             f"[{time.perf_counter() - t0:.1f} s]")
     log(f"  [{phase} profiles: {time.perf_counter() - t0:.1f} s]")
 
@@ -3198,14 +3252,12 @@ def factor_graphs(label: str, sched, factorize, ap, values, solver, orders,
 
 
 def programs_check_kernels(out: dict, profiled: dict) -> None:
-    """Each profiled numeric replay held the K3 and rect-entry launches of
-    its eager call."""
+    """Each profiled replay held the ported kernels' launches of its eager
+    call (``profiled[label]``: launches by ``KERNEL_NAMES`` key)."""
     for label, want in profiled.items():
-        got = out[label]["kernels"]
-        log(f"  {label}: a replay holds K3 {got['runs_read']}, rect entry "
-            f"{got['addback_rects']} (by kernel name); the eager loop "
-            f"(21(a)) launched {want['runs_read']} and "
-            f"{want['addback_rects']}")
+        got = {k: out[label]["kernels"][k] for k in want}
+        log(f"  {label}: a replay holds {got} (by kernel name); the eager "
+            f"loop launched {want}")
         if got != want:
             raise AssertionError(f"{label}: a replay holds {got}, the eager "
                                  f"loop launched {want}")
@@ -3336,6 +3388,379 @@ def compiled_programs_phase(dev, solver6, tree, operands,
         path(dev, out)
         log(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
     return out, profiled
+
+
+# ---- the distributed compiled programs (phase 24) --------------------------
+def sharded_factor_graphs(label: str, factorize, single, out: dict) -> None:
+    """A sharded numeric phase on a fresh owner (the first call eager, the
+    second captures), the replays against the eager loop and within
+    ``DIRECT_FACTOR_ATOL_OF_MAX·max|ref|`` of the single-device factor."""
+    out[label] = graph_vs_eager(
+        label, factorize,
+        lambda lv: close_of_max(f"{label}: replay vs the single-device "
+                                f"factor", lv, single,
+                                DIRECT_FACTOR_ATOL_OF_MAX), capture_on=2)
+
+
+def sharded_solve_graphs(label: str, fwd, bwd, a, mesh, seed: int,
+                         out: dict, profiled=("1 rhs", "8 rhs")) -> None:
+    """The distributed forward + backward solves on fresh copies of a
+    solver's schedules (the first call captures) at 1 and 8 rhs, under
+    phase 6's limits; the rows named in ``profiled`` keep their replay for
+    :func:`profile_rows`."""
+    import copy
+
+    fwd, bwd = copy.copy(fwd), copy.copy(bwd)
+    x_true, b8 = seeded_system(a, seed)
+    for name, b in (("1 rhs", b8[:, :1].contiguous()), ("8 rhs", b8)):
+        key = f"{label} {name}"
+        out[key] = graph_vs_eager(
+            key, lambda b=b: dist_solves(fwd, bwd, b, mesh),
+            lambda x, b=b, key=key: check_solution(f"{key} replay", a, x,
+                                                   x_true, b))
+        out[key]["levels"] = fwd.n_levels + bwd.n_levels
+        if name not in profiled:
+            del out[key]["profile"]
+
+
+def sharded_direct_graphs(dev, solver6, tree, operands, out: dict) -> None:
+    """24(a), (b): the sharded supernodal (33³ ND) and scatter-list (10⁶
+    tree) numeric phases at 4 logical shards on copies of phases 6 and 11's
+    schedules, and the distributed solves on their factors."""
+    import copy
+
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.parallel import cholesky as pc
+    from basic_sparse_matrix_tpu_torch.parallel import supernodal as ps
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+
+    mesh = row_mesh(DIRECT_SHARDS, comm="local")
+    t0 = time.perf_counter()
+    ap = operands["supernodal"]["ap"]
+    sched = copy.copy(solver6.sched)
+    kept = sum(t.numel() * 8 for g in sn.long_tables(sched) for t in g
+               if t.dtype == torch.int64)
+    log(f"(a) supernodal, {SOLVER_K}³ ND at {DIRECT_SHARDS} logical shards: "
+        f"the int64 tables kept on the schedule (made once, shared by the "
+        f"single-device and sharded phases) hold {kept / 2**20:.2f} MiB")
+    single = eagerly(lambda: sn.factorize_supernodal(sched, ap.values))()
+    sharded_factor_graphs(
+        f"sharded supernodal {SOLVER_K}³ ND numeric, {DIRECT_SHARDS} shards",
+        lambda sched=sched, ap=ap: ps.factorize_supernodal_sharded(
+            sched, ap.values, mesh), single, out)
+    del single
+    # the 8-rhs replay holds the 1-rhs one's launches; profiling a replay
+    # of 114,000 launches takes 12 s
+    sharded_solve_graphs(f"distributed solve, {SOLVER_K}³ ND supernodal "
+                         f"factor, {DIRECT_SHARDS} shards,", solver6._fwd,
+                         solver6._bwd, ap, mesh, SEED + 24, out,
+                         profiled=("1 rhs",))
+    log(f"  [(a) supernodal: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    tree_solver, tree_a = tree
+    ap = operands["scatter"]["ap"]
+    sched = copy.copy(tree_solver.sched)
+    single = eagerly(lambda: sc.factorize(sched, ap.values))()
+    sharded_factor_graphs(
+        f"sharded scatter-list tree (n {tree_a.rows}) numeric, "
+        f"{DIRECT_SHARDS} shards",
+        lambda sched=sched, ap=ap: pc.factorize_sharded(sched, ap.values,
+                                                        mesh), single, out)
+    sharded_solve_graphs(f"distributed solve, tree (n {tree_a.rows}) "
+                         f"factor, {DIRECT_SHARDS} shards,", tree_solver._fwd,
+                         tree_solver._bwd, ap, mesh, SEED + 25, out)
+    log(f"  [(b) scatter-list: {time.perf_counter() - t0:.1f} s]")
+
+
+def sharded_solver_graphs(dev, out: dict) -> None:
+    """24(c): ``DistributedOperator`` on the 33³ Laplacian at 8 logical
+    shards (phase 19(b)'s input): CG, PCG and Chebyshev replays under
+    phase 19's residual limits, Chebyshev with new bounds on its graph, and
+    Lanczos(32) (Ritz values of the replay within ``RITZ_REPLAY_REL·|λ|``
+    of the eager run's)."""
+    import torch.nn.functional as F
+
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.parallel import chebyshev as pch
+    from basic_sparse_matrix_tpu_torch.parallel import lanczos as pl
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+    from basic_sparse_matrix_tpu_torch.parallel.operator import (
+        DistributedOperator)
+    from basic_sparse_matrix_tpu_torch.runtime import graphs
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)
+    op = DistributedOperator(a, row_mesh(PAR_SERVING_SHARDS, comm="local"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rhs = torch.randn(n, generator=gen, device=dev)
+    eagerly(op._ensure_block_jacobi)()
+    # the Chebyshev bounds from the operator's own Lanczos, eagerly
+    eagerly(lambda: op.solve_chebyshev(rhs, iters=1))()
+    log(f"(c) DistributedOperator, {SOLVER_K}³ Laplacian at "
+        f"{PAR_SERVING_SHARDS} logical shards; Chebyshev bounds "
+        f"{op._bounds[0]:.6f}, {op._bounds[1]:.6f}")
+
+    def residual(name, limit):
+        def check(x):
+            res = float(torch.linalg.norm(rhs.double() - matvec64(a, x))
+                        / torch.linalg.norm(rhs.double()))
+            log(f"    {name}: float64 relative residual {res:.3e} (limit "
+                f"{limit:g})")
+            if not res <= limit:
+                raise AssertionError(f"{name}: residual over the limit")
+        return check
+    for name, call, iters, limit in (
+            ("solve_cg", op.solve_cg, PAR_CG_ITERS, PAR_RES_MAX),
+            ("solve_pcg", op.solve_pcg, PAR_PCG_ITERS, PAR_RES_MAX),
+            ("solve_chebyshev", op.solve_chebyshev, PAR_CHEB_ITERS,
+             PAR_CHEB_RES_MAX)):
+        key = f"sharded {name} ({iters} iterations), {PAR_SERVING_SHARDS} " \
+              f"shards"
+        out[key] = graph_vs_eager(
+            key, lambda call=call, iters=iters: call(rhs, iters=iters),
+            residual(key, limit))
+        out[key]["iterations"] = iters
+        out[key]["replay_ms_per_iteration"] = \
+            out[key]["replay_ms"]["median"] / iters
+        out[key]["eager_ms_per_iteration"] = \
+            out[key]["eager_ms"]["median"] / iters
+        log(f"    per iteration: eager "
+            f"{out[key]['eager_ms_per_iteration']:.3f} ms, replay "
+            f"{out[key]['replay_ms_per_iteration']:.3f} ms")
+    out["eager sharded solve_cg"] = {
+        "profile": eagerly(lambda: op.solve_cg(rhs, iters=PAR_CG_ITERS))}
+    # new bounds replay the Chebyshev graph: no new key
+    held = graphs.count(op.sa)
+    bounds = (0.9 * op._bounds[0], 1.02 * op._bounds[1])
+
+    def other(bounds=bounds):
+        return pch.chebyshev_solve_sharded(op.sa, rhs, op.mesh,
+                                           iters=PAR_CHEB_ITERS,
+                                           bounds=bounds, n=n)[0]
+    x = other()
+    if graphs.count(op.sa) != held:
+        raise AssertionError("new Chebyshev bounds made a new graph")
+    close_of_max("sharded Chebyshev, new bounds: replay vs eager loop", x,
+                 eagerly(other)(), GRAPH_ATOL_OF_MAX)
+    v0 = F.pad(torch.randn(n, generator=gen, device=dev),
+               (0, op.sa.padded_rows - n))
+    key = f"sharded Lanczos({LANCZOS_K}), {PAR_SERVING_SHARDS} shards"
+
+    def ritz():
+        return pl.ritz_values(*pl.lanczos_sharded_from(op.sa, v0, LANCZOS_K,
+                                                       op.mesh, n=n))
+
+    def check_ritz(got):
+        want = eagerly(ritz)()
+        err = float(((got - want).abs() / want.abs()).max())
+        log(f"    Ritz values, replay vs eager: {err:.3e} of |λ| (limit "
+            f"{RITZ_REPLAY_REL:g})")
+        if not err <= RITZ_REPLAY_REL:
+            raise AssertionError("sharded Lanczos replay: Ritz values off")
+    out[key] = graph_vs_eager(key, ritz, check_ritz, capture_on=2)
+    log(f"  graphs on the ShardedCSR: {graphs.count(op.sa)} (of "
+        f"{graphs.MAX_GRAPHS_PER_OWNER} kept an owner)")
+
+
+def sharded_bcr_graphs(dev, out: dict) -> None:
+    """24(d): ``bcr_solve_sharded`` on the 33³ RCM Laplacian's blocks,
+    padded to 4·2^q block rows once on the host, at 1 and 8 rhs under phase
+    6's limits (the first call eager, the second captures)."""
+    import torch.nn.functional as F
+
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.ops.csr import to_tensor
+    from basic_sparse_matrix_tpu_torch.ops.reorder import (
+        permute_symmetric, rcm_permutation)
+    from basic_sparse_matrix_tpu_torch.parallel import bcr as pb
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+
+    n, r, c, v = laplacian_3d(SOLVER_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)
+    ap = permute_symmetric(a, rcm_permutation(a))
+    D, E = pb.padded_band_blocks(ap, DIRECT_SHARDS)
+    mp, nb = D.shape[0], D.shape[1]
+    D, E = to_tensor(D, dev), to_tensor(E, dev)
+    mesh = row_mesh(DIRECT_SHARDS, comm="local")
+    log(f"(d) bcr_solve_sharded, {SOLVER_K}³ Laplacian under RCM: nb {nb}, "
+        f"{mp} block rows at {DIRECT_SHARDS} shards, D and E "
+        f"{2 * D.numel() * 4 / 2**20:.1f} MiB")
+    x_true, b8 = seeded_system(ap, SEED + 26)
+    for name, b in (("1 rhs", b8[:, :1].contiguous()), ("8 rhs", b8)):
+        bb = F.pad(b, (0, 0, 0, mp * nb - n)).reshape(mp, nb, b.shape[1])
+        key = f"sharded BCR {SOLVER_K}³ RCM solve {name}, {DIRECT_SHARDS} " \
+              f"shards"
+        out[key] = graph_vs_eager(
+            key, lambda bb=bb: pb.bcr_solve_sharded(D, E, bb, mesh),
+            lambda x, b=b, key=key: check_solution(
+                f"{key} replay", ap, x.reshape(mp * nb, -1)[:n], x_true, b),
+            capture_on=2)
+
+
+def sharded_nccl_graphs(dev) -> None:
+    """24(e): at world size 1 over NCCL every compiled program of
+    ``parallel/`` (the first call eager where it captures on the second,
+    then the capture, then a replay) against the same call on eager
+    ``LocalComm`` at one shard, bit for bit under deterministic algorithms
+    (the supernodal factor, whose add-back adds with atomics, within
+    ``NCCL_ATOL_OF_MAX·max|ref|``), on the 14³ Laplacian; the graphs are
+    kept by the communicator and go with it."""
+    import weakref
+
+    import torch.distributed as dist
+
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular as st
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+    from basic_sparse_matrix_tpu_torch.ops.csr import to_tensor
+    from basic_sparse_matrix_tpu_torch.ops.reorder import (
+        nd_permutation, permute_symmetric)
+    from basic_sparse_matrix_tpu_torch.parallel import bcr as pb
+    from basic_sparse_matrix_tpu_torch.parallel import cg as pcg
+    from basic_sparse_matrix_tpu_torch.parallel import chebyshev as pch
+    from basic_sparse_matrix_tpu_torch.parallel import cholesky as pc
+    from basic_sparse_matrix_tpu_torch.parallel import lanczos as pl
+    from basic_sparse_matrix_tpu_torch.parallel import pcg as ppcg
+    from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
+    from basic_sparse_matrix_tpu_torch.parallel import supernodal as ps
+    from basic_sparse_matrix_tpu_torch.parallel import triangular as pt
+    from basic_sparse_matrix_tpu_torch.parallel.mesh import row_mesh
+    from basic_sparse_matrix_tpu_torch.runtime import graphs
+
+    n, r, c, v = laplacian_3d(FORMULATION_K)
+    a = CSR.from_coo_arrays((n, n), r, c, v)
+    ap = permute_symmetric(a, nd_permutation(a))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    b8 = torch.randn((n, 8), generator=gen, device=dev)
+    nccl_up()
+    mesh_d, mesh_l = row_mesh(comm="dist"), row_mesh(1, comm="local")
+    comm = mesh_d.axis("rows")
+    log(f"(e) NCCL at world size 1, {FORMULATION_K}³ Laplacian (n {n}): "
+        f"communicator key "
+        f"{comm.graph_key[:4]}, capturable {comm.capturable}; graphed "
+        f"TorchDistComm against eager LocalComm at one shard, deterministic "
+        f"algorithms on:")
+    if not comm.capturable:
+        raise AssertionError("an NCCL TorchDistComm is not capturable")
+    chol = sc.analyze(ap)
+    fwd = st.build_schedule(sc.cholesky_sparse(ap))
+    snode = sn.analyze_supernodal(ap)
+    sa = sh.put_sharded(sh.shard_csr(a, 1), mesh_l)
+    lfac = eagerly(lambda: ppcg.build_block_jacobi(sa, mesh_l))()
+    D, E = (to_tensor(t, dev) for t in pb.padded_band_blocks(
+        a, 1, FORMULATION_K ** 2))
+    bb = torch.nn.functional.pad(b8, (0, 0, 0, D.shape[0] * D.shape[1] - n)
+                                 ).reshape(D.shape[0], D.shape[1], 8)
+    v0 = torch.randn(sa.padded_rows, generator=gen, device=dev)
+    programs = (
+        ("factorize_sharded", chol, 2,
+         lambda m: pc.factorize_sharded(chol, ap.values, m)),
+        ("solve_triangular_sharded", fwd, 1,
+         lambda m: pt.solve_triangular_sharded(fwd, b8, m)),
+        ("factorize_supernodal_sharded", snode, 2,
+         lambda m: ps.factorize_supernodal_sharded(snode, ap.values, m)),
+        ("cg_solve_sharded", sa, 1,
+         lambda m: pcg.cg_solve_sharded(sa, b8[:, 0], m, iters=30)),
+        ("pcg_solve_sharded", sa, 1,
+         lambda m: ppcg.pcg_solve_sharded(sa, b8[:, 0], m, iters=20,
+                                          lfac=lfac)),
+        ("chebyshev_solve_sharded", sa, 1,
+         lambda m: pch.chebyshev_solve_sharded(
+             sa, b8[:, 0], m, iters=40, bounds=(0.1, 12.0))[0]),
+        ("lanczos_sharded_from", sa, 2,
+         lambda m: torch.cat(pl.lanczos_sharded_from(sa, v0, 16, m))),
+        ("bcr_solve_sharded", pb._BCR_SHARDED, 2,
+         lambda m: pb.bcr_solve_sharded(D, E, bb, m)))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, owner, capture_on, call in programs:
+            holder = comm.graph_owner(owner)
+            held = graphs.count(holder)
+            outs = [call(mesh_d) for _ in range(capture_on + 1)]
+            if graphs.count(holder) != held + 1:
+                raise AssertionError(f"{name}: {graphs.count(holder) - held} "
+                                     f"graphs captured on the communicator's "
+                                     f"holder, not 1")
+            want = eagerly(lambda: call(mesh_l))()
+            for i in range(capture_on - 1, capture_on + 1):
+                what = ("capture" if i == capture_on - 1 else "replay")
+                if owner is snode:
+                    close_of_max(f"{name} over NCCL, {what} (the add-back's "
+                                 f"atomicAdd)", outs[i], want,
+                                 NCCL_ATOL_OF_MAX)
+                else:
+                    same_bits(f"{name} over NCCL, {what}", outs[i], want)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    alive = weakref.ref(holder)
+    del holder, comm, mesh_d, outs
+    gc.collect()
+    if alive() is not None:
+        raise AssertionError("the NCCL graphs outlived their communicator")
+    dist.destroy_process_group()
+    log("  the graphs went with the communicator; process group destroyed")
+
+
+def sharded_programs_phase(dev, solver6, tree, operands, ring) -> dict:
+    """Phase 24: every compiled program of ``parallel/`` as a replayed CUDA
+    graph against the same call under ``eager_loops()``, on the inputs of
+    phases 19(b) and 20(a)-(c) (phases 6 and 11's solvers), NCCL at world
+    size 1, and (f) the rings on phase 19's operand kept for it, eagerly
+    and as graphs made here (the port keeps them op by op). Returns the
+    rows, each with its ``profile`` call."""
+    log("distributed compiled programs (phase 24): parallel/'s loops as "
+        "captured CUDA graphs against their eager loops:")
+    out = {}
+    sharded_direct_graphs(dev, solver6, tree, operands, out)
+    for name, part in (("(c) solvers", sharded_solver_graphs),
+                       ("(d) BCR", sharded_bcr_graphs)):
+        t0 = time.perf_counter()
+        part(dev, out)
+        torch.cuda.empty_cache()
+        log(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    sharded_nccl_graphs(dev)
+    log(f"  [(e) NCCL: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    ring_graphs(ring, out)
+    log(f"  [(f) rings: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+class _RingGraphs:
+    """The owner of 24(f)'s graphs of the rings (the port runs them op by
+    op)."""
+
+
+def ring_graphs(ring, out: dict) -> None:
+    """24(f): ``spmm_ring`` at 4 shards and ``spmm_ring_2d`` at 2 × 2 on
+    phase 19's 1M × 1M × 32 operand and B, eagerly as the port runs them,
+    against a CUDA graph of the same call made here through ``graphs.run``
+    (the first call eager, the second captures): the measurement behind
+    keeping the rings op by op (the graph copies B in and clones the
+    result). Both eager rings are profiled beside the graphs."""
+    from basic_sparse_matrix_tpu_torch.parallel import spmm as psp
+    from basic_sparse_matrix_tpu_torch.parallel import spmm2d
+    from basic_sparse_matrix_tpu_torch.runtime import graphs
+
+    sa, sa2, b_st, mesh, mesh2 = ring
+    s = mesh.shape["rows"]
+    shape = f"1M × 1M × 32 × {b_st.shape[1]}"
+    owner = _RingGraphs()
+    for key, call in (
+            (f"spmm_ring, {shape}, {s} shards",
+             lambda b: psp.spmm_ring(sa, b, mesh)),
+            (f"spmm_ring_2d, {shape}, 2 × 2",
+             lambda b: spmm2d.spmm_ring_2d(sa2, b, mesh2))):
+        out[f"graph of {key}"] = graph_vs_eager(
+            f"graph of {key}",
+            lambda call=call, key=key: graphs.run(owner, key, call, b_st,
+                                                  capture_on=2),
+            lambda y, key=key: on_card(key, y),
+            eager=lambda call=call: call(b_st), capture_on=2)
+        out[f"eager {key}"] = {"profile": lambda call=call: call(b_st)}
 
 
 def main() -> None:
@@ -3500,7 +3925,7 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # ---- 19. parallel/, while the 1M-row operand is resident ---------------
     t0 = time.perf_counter()
-    parallel_phase(dev, a_st, b_st, ref_st)
+    _, ring = parallel_phase(dev, a_st, b_st, ref_st)
     torch.cuda.empty_cache()
     log(f"  [parallel_phase: {time.perf_counter() - t0:.1f} s]")
     # ---- 21(c). a batch of right-hand sides, while the operand is resident
@@ -3508,7 +3933,8 @@ def main() -> None:
     batched_rhs = batched_rhs_spmm(a_st, dev)
     torch.cuda.empty_cache()
     log(f"  [batched_rhs_spmm: {time.perf_counter() - t0:.1f} s]")
-    # the rung loops leave a and b bound to the 1M-row operand (≈ 2.8 GiB)
+    # the rung loops leave a and b bound to the 1M-row operand (≈ 2.8 GiB);
+    # ring keeps its 4 shards and b_st for phase 24(f)'s profile, last
     del a_dense, b_dense, a_bsr, b_bsr, a_st, b_st, bsr, plan, a, b, ref_st
     torch.cuda.empty_cache()
 
@@ -3589,16 +4015,39 @@ def main() -> None:
         dev, solver6, returned["scatter_tier"], operands,
         batched["supernodal"]["launches"])
     log(f"  [compiled_programs_phase: {time.perf_counter() - t0:.1f} s]")
-    # the profiled calls of phases 22 and 23, last
+
+    # ---- 24. the distributed compiled programs -----------------------------
+    t0 = time.perf_counter()
+    sharded = sharded_programs_phase(dev, solver6, returned["scatter_tier"],
+                                     operands, ring)
+    log(f"  [sharded_programs_phase: {time.perf_counter() - t0:.1f} s]")
+    # a sharded supernodal replay holds the K3 and rect-entry launches of
+    # 20(a)'s eager sharded factorization (same pattern, ranks, config)
+    label24 = (f"sharded supernodal {SOLVER_K}³ ND numeric, {DIRECT_SHARDS} "
+               f"shards")
+    profiled24 = {label24: {
+        "runs_read": direct_launches["runs_read"],
+        "addback_rects": direct_launches["addback_resident"]
+        + direct_launches["panel_addback"]}}
+    # the profiled calls of phases 22 to 24, last
     t0 = time.perf_counter()
     profile_rows("phase 22", loops)
-    profile_rows("phase 23", programs)
+    profile_rows("phase 23", programs, profiled)
+    profile_rows("phase 24", sharded, profiled24)
     programs_check_kernels(programs, profiled)
-    del solver6, returned, operands
+    programs_check_kernels(sharded, profiled24)
+    del solver6, returned, operands, ring
     torch.cuda.empty_cache()
     log(f"  [profiles: {time.perf_counter() - t0:.1f} s]")
     log("phase 22 summary: " + json.dumps(loops, default=float))
     log("phase 23 summary: " + json.dumps(programs, default=float))
+    log("phase 24 summary: " + json.dumps(sharded, default=float))
+    # K3 and the rect entry (one kernel behind the K4 and K5 wrappers) as a
+    # replay of 24(a)'s sharded numeric phase holds them, by kernel name
+    for k in kernels:
+        if k["name"] in ("runs_read", "addback_resident", "panel_addback"):
+            k["launches_parallel_replay"] = sharded[label24]["kernels"][
+                "runs_read" if k["name"] == "runs_read" else "addback_rects"]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched by its "
