@@ -9,7 +9,7 @@ It imports ``torch`` and never ``jax``. Hand-written Hopper kernels live in
 Ported so far (every module of the JAX package except ``parallel``'s
 slice C: ``cholesky``, ``triangular``, ``supernodal``, ``bcr``,
 ``multihost``):
-* ``utils``   — shapes, the ``MatErr`` error types, config, logging
+* ``utils``   — shapes, the ``MatErr`` error types, config
 * ``ops``     — COO/CSR/Dense storage with the full ``CSR`` surface,
   transpose, ELL, interop, orderings, SpMM/SpMV and the ``spmm_auto``
   dispatch ladder, sparse add/sub/scale and reductions, SpGEMM
@@ -25,7 +25,8 @@ slice C: ``cholesky``, ``triangular``, ``supernodal``, ``bcr``,
   wrapper
 * ``runtime`` — host symbolic analysis (native C++ with numpy fallbacks),
   CUDA-event timing, the kernel build, validation, Matrix Market I/O,
-  ``.npz`` checkpoints and metrics
+  ``.npz`` checkpoints, and the recorder of spans, counters and set-up
+  laps (``runtime/profiling.py``)
 * ``parallel`` — the mesh and its communicators (logical ranks in one
   process, or one rank per ``torch.distributed`` process), the row-sharded
   CSR, the SpMM strategies, CG, block-Jacobi PCG, Lanczos, Chebyshev,

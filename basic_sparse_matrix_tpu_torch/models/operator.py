@@ -16,6 +16,7 @@ import torch
 
 from ..ops.csr import CSR
 from ..ops.spmm import mul_dense, mul_vector
+from ..runtime import profiling
 
 
 @dataclasses.dataclass(eq=False)
@@ -27,6 +28,12 @@ class SparseOperator:
     picks them); ``solve`` builds and caches a :class:`DirectSolver`;
     ``solve_cg`` the IC(0)-PCG set-up; ``solve_chebyshev``,
     ``eigen_values`` and ``condition_estimate`` share one Lanczos set-up.
+    ``direct_solver`` and ``pcg_setup`` give the prepared solvers (None
+    until built), and with them their set-up ``timings``.
+
+    ``matmul``, ``solve`` and ``solve_cg`` are the requests the recorder
+    (``runtime/profiling.py``) roots its spans at: ``bsm.matmul``,
+    ``bsm.solve``, ``bsm.solve_cg``.
     """
 
     a: CSR
@@ -35,8 +42,20 @@ class SparseOperator:
     _lanczos: Optional[object] = None
 
     # ------------------------------------------------------------------ #
+    @property
+    def direct_solver(self):
+        """The :class:`DirectSolver` that ``solve`` built, or None."""
+        return self._direct
+
+    @property
+    def pcg_setup(self):
+        """The IC(0) ``PCGSetup`` that ``solve_cg`` built, or None."""
+        return self._pcg
+
+    # ------------------------------------------------------------------ #
     def matmul(self, b) -> torch.Tensor:
-        return mul_dense(self.a, b)
+        with profiling.span("bsm.matmul"):
+            return mul_dense(self.a, b)
 
     def matvec(self, x) -> torch.Tensor:
         return mul_vector(self.a, x)
@@ -63,17 +82,19 @@ class SparseOperator:
         supernodal / scatter-list, the :class:`DirectSolver` ladder) and
         solve schedules are computed once and reused for every later
         right-hand side."""
-        return self._ensure_direct().solve(b)
+        with profiling.span("bsm.solve"):
+            return self._ensure_direct().solve(b)
 
     def solve_cg(self, b, tol: float = 1e-6, max_iters: int = 1000):
         """IC(0)-preconditioned CG; the preconditioner is built once.
         Returns (x, iterations, final relative residual)."""
         from .pcg import PCGSetup, pcg_solve
 
-        if self._pcg is None:
-            self._pcg = PCGSetup.build(self.a)
-        return pcg_solve(self.a, b, tol=tol, max_iters=max_iters,
-                         setup=self._pcg)
+        with profiling.span("bsm.solve_cg"):
+            if self._pcg is None:
+                self._pcg = PCGSetup.build(self.a)
+            return pcg_solve(self.a, b, tol=tol, max_iters=max_iters,
+                             setup=self._pcg)
 
     def solve_chebyshev(self, b, iters: int = 100):
         """Chebyshev semi-iteration (SPD; no inner products in the loop),

@@ -17,6 +17,13 @@ it runs in chunks of ``CHUNK`` iterations, each a captured CUDA graph that
 evaluates the rule on the device and masks the steps past the end; the
 host reads one flag per chunk (:func:`_pcg_chunked`). Both take the same
 iterations to the same result.
+
+The recorder (``runtime/profiling.py``) sees the start as the span
+``bsm.pcg.start``, each chunk as ``bsm.pcg.chunk`` and each host read
+(a chunk's flag, the iteration count, the residual; on the CPU each
+iteration's test) as ``bsm.pcg.read`` and the counter ``pcg.host_reads``.
+``PCGSetup.build``'s phases are the laps ``pcg.analyze``, ``pcg.numeric``,
+``pcg.assemble``, ``pcg.schedules`` and ``pcg.ell``, in its ``timings``.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from ..ops.csr import CSR
 from ..ops.ell import ELL
-from ..runtime import graphs
+from ..runtime import graphs, profiling
 from ..utils.errors import NonSquareMatrix, check
 from . import sparse_cholesky as sc
 from .sparse_triangular import (
@@ -44,33 +51,48 @@ from .sparse_triangular import (
 class PCGSetup:
     """Host-side preparation: IC(0) factor, both triangular schedules, and
     (when the padding overhead permits) an ELL view of A for the
-    per-iteration matvec."""
+    per-iteration matvec. ``timings`` holds the host-clock seconds of each
+    set-up phase, each lap synchronised with the device: ``analyze``,
+    ``numeric`` and ``assemble`` (the factor's CSR) from :meth:`build`,
+    ``schedules`` (the two triangular-solve schedules) and ``ell``."""
 
     a: CSR
     fwd: TriangularSchedule
     bwd: TriangularSchedule
     ell: Optional[ELL] = None
+    timings: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def build(a: CSR) -> "PCGSetup":
         check(a.rows == a.cols, NonSquareMatrix, f"pcg needs square {a.dims}")
+        clock = profiling.Laps("pcg", a.device)
         sched = sc.analyze(a, incomplete=True)
-        return PCGSetup.from_factor(
-            a, sc.csc_to_csr_l(sched, sc.factorize(sched, a.values)))
+        clock.lap("analyze")
+        lvals = sc.factorize(sched, a.values)
+        clock.lap("numeric")
+        l = sc.csc_to_csr_l(sched, lvals)
+        clock.lap("assemble")
+        return PCGSetup._finish(a, l, clock)
 
     @staticmethod
     def from_factor(a: CSR, l: CSR) -> "PCGSetup":
         """The set-up for ``a`` with the lower-triangular preconditioner
         factor ``l`` (``M = L Lᵀ``)."""
+        return PCGSetup._finish(a, l, profiling.Laps("pcg", a.device))
+
+    @staticmethod
+    def _finish(a: CSR, l: CSR, clock: profiling.Laps) -> "PCGSetup":
         from ..ops.ell import csr_to_ell, ell_overhead
         from ..utils.config import get_config
 
+        fwd = build_schedule(l, lower=True)
+        bwd = build_schedule(l.transpose(), lower=False)
+        clock.lap("schedules")
         ell = None
         if a.stored and ell_overhead(a) <= get_config().ell_max_overhead:
             ell = csr_to_ell(a)
-        return PCGSetup(a=a, fwd=build_schedule(l, lower=True),
-                        bwd=build_schedule(l.transpose(), lower=False),
-                        ell=ell)
+        clock.lap("ell")
+        return PCGSetup(a=a, fwd=fwd, bwd=bwd, ell=ell, timings=clock.out)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.ell is not None:
@@ -91,9 +113,18 @@ class PCGSetup:
 def _pcg_start(setup: PCGSetup, b: torch.Tensor):
     """The loop's carry before the first iteration: (x, r, p, rz) and the
     clamped ‖b‖."""
-    z = setup.apply_m_inv(b)
-    return (torch.zeros_like(b), b, z, torch.dot(b, z),
-            torch.linalg.norm(b).clamp_min(1e-30))
+    with profiling.span("bsm.pcg.start"):
+        z = setup.apply_m_inv(b)
+        return (torch.zeros_like(b), b, z, torch.dot(b, z),
+                torch.linalg.norm(b).clamp_min(1e-30))
+
+
+def _read(x: torch.Tensor, kind: type):
+    """``kind(x)`` (``bool``, ``int`` or ``float``): a host read of a
+    device value, which waits for the device."""
+    profiling.count("pcg.host_reads")
+    with profiling.span("bsm.pcg.read"):
+        return kind(x)
 
 
 def _pcg_step(setup: PCGSetup, x, r, p, rz):
@@ -114,7 +145,8 @@ def _pcg_loop(setup: PCGSetup, b: torch.Tensor, tol: float,
     x, r, p, rz, bnorm = _pcg_start(setup, b)
     it = 0
     # tol compares in float32, as the JAX package's jnp.float32(tol)
-    while it < max_iters and bool(torch.linalg.norm(r) / bnorm > tol):
+    while it < max_iters and _read(torch.linalg.norm(r) / bnorm > tol,
+                                   bool):
         x, r, p, rz = _pcg_step(setup, x, r, p, rz)
         it += 1
     return x, it, torch.linalg.norm(r) / bnorm
@@ -162,10 +194,12 @@ def _pcg_chunked(setup: PCGSetup, b: torch.Tensor, tol: float,
     chunk = functools.partial(_pcg_chunk, setup)
     go = True
     while go:
-        x, r, p, rz, it, act = graphs.run(setup, ("pcg", CHUNK), chunk,
-                                          x, r, p, rz, it, bnorm, *limits)
-        go = bool(act)
-    return x, int(it), torch.linalg.norm(r) / bnorm
+        with profiling.span("bsm.pcg.chunk"):
+            x, r, p, rz, it, act = graphs.run(setup, ("pcg", CHUNK), chunk,
+                                              x, r, p, rz, it, bnorm,
+                                              *limits)
+        go = _read(act, bool)
+    return x, _read(it, int), torch.linalg.norm(r) / bnorm
 
 
 def pcg_solve(a: CSR, b, *, tol: float = 1e-6, max_iters: int = 1000,
@@ -182,4 +216,4 @@ def pcg_solve(a: CSR, b, *, tol: float = 1e-6, max_iters: int = 1000,
     b = b.to(device=setup.a.device, dtype=torch.float32)
     loop = _pcg_chunked if b.is_cuda else _pcg_loop
     x, it, res = loop(setup, b, tol, max_iters)
-    return x, it, float(res)
+    return x, it, _read(res, float)

@@ -10,13 +10,12 @@ scatter-list) and solves, all on the matrix's device.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..ops.csr import CSR
 from ..ops.dense import Dense
+from ..runtime import profiling
 from ..utils.config import get_config, matmul_precision
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 from .triangular import _as_array
@@ -68,7 +67,9 @@ class DirectSolver:
     banded tier or the schedule on the others), ``numeric`` (the
     factorization), and on the supernodal and scatter tiers ``assemble``
     (the factor's CSR) and ``schedules`` (the two triangular-solve
-    schedules). A banded tier has no ``assemble`` or ``schedules``."""
+    schedules). A banded tier has no ``assemble`` or ``schedules``. The
+    laps are also the recorder's ``direct.<phase>``
+    (``runtime/profiling.py::Laps``)."""
 
     def __init__(self, a: CSR, *, reorder: bool = True):
         from ..ops.csr import to_tensor
@@ -93,7 +94,7 @@ class DirectSolver:
         self.timings = {}
         self._banded = None
         self._l = self._fwd = self._bwd = None
-        clock = _Clock(a.device, self.timings)
+        clock = profiling.Laps("direct", a.device, self.timings)
         if reorder:
             if cfg.ordering == "auto":
                 self._set_perm(best_permutation(a)[0])
@@ -165,33 +166,20 @@ class DirectSolver:
         rhs = _as_array(b, self.device)
         check(rhs.shape[0] == self.n, IncorrectDimensions,
               f"solve: A n={self.n} vs b {tuple(rhs.shape)}")
-        if self._gathers is not None:
-            rhs = apply_perm(rhs, self._gathers[0])
-        if self.kind == "banded-bcr":
-            x = self._banded.solve(rhs)
-        elif self.kind == "banded":
-            x = _bd.solve_factored_banded(self._banded, rhs)
-        else:
-            y = solve_triangular_sparse(self._l, rhs, self._fwd)
-            x = solve_triangular_sparse(self._l, y, self._bwd, lower=False)
-        if self._gathers is not None:
-            x = apply_perm(x, self._gathers[1])
+        with profiling.span("bsm.direct.solve"):
+            if self._gathers is not None:
+                rhs = apply_perm(rhs, self._gathers[0])
+            if self.kind == "banded-bcr":
+                x = self._banded.solve(rhs)
+            elif self.kind == "banded":
+                x = _bd.solve_factored_banded(self._banded, rhs)
+            else:
+                y = solve_triangular_sparse(self._l, rhs, self._fwd)
+                x = solve_triangular_sparse(self._l, y, self._bwd,
+                                            lower=False)
+            if self._gathers is not None:
+                x = apply_perm(x, self._gathers[1])
         return x[:, 0] if squeeze else x
-
-
-class _Clock:
-    """Host-clock laps into ``out``, each ended by a device synchronise
-    (on a CUDA device) so that a lap holds the device work it queued."""
-
-    def __init__(self, device: torch.device, out: dict):
-        self.device, self.out, self.t0 = device, out, time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = now - self.t0
-        self.t0 = now
 
 
 def prepare_direct(a: CSR, *, reorder: bool = True) -> DirectSolver:

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.csr import CSR, to_tensor
-from ..runtime import graphs, symbolic
+from ..runtime import graphs, profiling, symbolic
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 
 
@@ -238,27 +238,30 @@ def solve_triangular_sparse(l: CSR, b,
     n[, k]) and so is the result (``jax.vmap`` over stacked schedules in
     the JAX package). On the card the solve replays a captured graph
     (``runtime/graphs.py``); ``b`` and the batched values are copied into
-    its static buffers, and the result is a fresh tensor."""
-    if sched is None:
-        sched = build_schedule(l, lower=lower)
-    if not isinstance(b, torch.Tensor):
-        b = torch.as_tensor(np.asarray(b))
-    b = b.to(sched.rows.device)
-    d = 0
-    vals = inv_diag = None
-    if values is not None:
-        vals, inv_diag = values
-        d = 1
-        check(vals.ndim == 2 and inv_diag.shape == (vals.shape[0], sched.n)
-              and b.ndim >= 2 and b.shape[0] == vals.shape[0],
-              IncorrectDimensions,
-              f"batched triangular solve: values {tuple(vals.shape)}, "
-              f"{tuple(inv_diag.shape)} vs b {tuple(b.shape)}")
-    check(b.shape[d] == sched.n, IncorrectDimensions,
-          f"triangular solve: n={sched.n} vs b {tuple(b.shape)}")
-    operands = (b,) if values is None else (b, vals, inv_diag)
-    return graphs.run(sched, "solve", functools.partial(_solve, sched),
-                      *operands)
+    its static buffers, and the result is a fresh tensor. The recorder's
+    span is ``bsm.trsv`` (``runtime/profiling.py``)."""
+    with profiling.span("bsm.trsv"):
+        if sched is None:
+            sched = build_schedule(l, lower=lower)
+        if not isinstance(b, torch.Tensor):
+            b = torch.as_tensor(np.asarray(b))
+        b = b.to(sched.rows.device)
+        d = 0
+        vals = inv_diag = None
+        if values is not None:
+            vals, inv_diag = values
+            d = 1
+            check(vals.ndim == 2
+                  and inv_diag.shape == (vals.shape[0], sched.n)
+                  and b.ndim >= 2 and b.shape[0] == vals.shape[0],
+                  IncorrectDimensions,
+                  f"batched triangular solve: values {tuple(vals.shape)}, "
+                  f"{tuple(inv_diag.shape)} vs b {tuple(b.shape)}")
+        check(b.shape[d] == sched.n, IncorrectDimensions,
+              f"triangular solve: n={sched.n} vs b {tuple(b.shape)}")
+        operands = (b,) if values is None else (b, vals, inv_diag)
+        return graphs.run(sched, "solve", functools.partial(_solve, sched),
+                          *operands)
 
 
 def _solve(sched: TriangularSchedule, b: torch.Tensor,

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..runtime import profiling
 from ..utils.config import get_config
 from .csr import CSR, compute_dtype, to_tensor
 from .pallas.stream_kernel import spmm_stream, stream_plan_from_ell
@@ -111,9 +112,12 @@ def ell_overhead(a: CSR) -> float:
 
 
 def cached_ell(a: CSR) -> ELL:
-    """``a``'s ELL layout, converted once and memoised on ``a``."""
+    """``a``'s ELL layout, converted once and memoised on ``a`` (the set-up
+    lap ``spmm.ell_convert``)."""
     if a._ell_cache is None:
+        clock = profiling.Laps("spmm", a.device)
         a._ell_cache = csr_to_ell(a)
+        clock.lap("ell_convert")
     return a._ell_cache
 
 
@@ -132,5 +136,9 @@ def spmm_ell_from_csr(a: CSR, b: torch.Tensor) -> torch.Tensor:
             and a.stored >= (1 << 18)):
         plan = stream_plan_from_ell(ell, int(b.shape[1]))
         if plan is not None:
-            return spmm_stream(plan, b)
-    return spmm_ell(ell, b)
+            profiling.count("spmm.rung.stream")
+            with profiling.span("bsm.spmm.stream"):
+                return spmm_stream(plan, b)
+    profiling.count("spmm.rung.ell")
+    with profiling.span("bsm.spmm.ell"):
+        return spmm_ell(ell, b)

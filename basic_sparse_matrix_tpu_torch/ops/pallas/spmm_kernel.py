@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ...runtime import profiling
 from ...utils.config import get_config, matmul_precision
 from ..csr import CSR, canonical, to_tensor
 
@@ -277,9 +278,12 @@ def kernel_config(bm: int, precision=None) -> dict:
 
 
 def cached_bsr(a: CSR) -> BSR:
-    """``a``'s BSR layout, converted once and memoised on ``a``."""
+    """``a``'s BSR layout, converted once and memoised on ``a`` (the set-up
+    lap ``spmm.bsr_convert``)."""
     if a._bsr_cache is None:
+        clock = profiling.Laps("spmm", a.device)
         a._bsr_cache = csr_to_bsr(a)
+        clock.lap("bsr_convert")
     return a._bsr_cache
 
 
@@ -292,7 +296,8 @@ def bsr_profitable(a: CSR, b: torch.Tensor, *, force: bool = False) -> bool:
     """Dispatch heuristic of the JAX package: BSR when the block fill
     reaches ``bsr_min_fill``, only for an RHS on a CUDA device (the JAX
     package's "real TPU backend" gate). ``force=True`` bypasses the device
-    gate so the fill logic can be tested on the CPU."""
+    gate so the fill logic can be tested on the CPU. The fill test, run
+    once per matrix, is the set-up lap ``spmm.bsr_fill``."""
     if not b.is_cuda and not force:
         return False
     n = int(b.shape[-1])
@@ -303,6 +308,7 @@ def bsr_profitable(a: CSR, b: torch.Tensor, *, force: bool = False) -> bool:
         fill = a.stored / (bsr.nblocks * bsr.bm * bsr.bk)
     else:
         if a._bsr_fill is None:
+            clock = profiling.Laps("spmm", a.device)
             bm, bk = pick_tiles(a.rows, a.cols, a.stored)
             indptr, indices, _ = a.numpy()
             rows = np.repeat(np.arange(a.rows), np.diff(indptr))
@@ -312,5 +318,6 @@ def bsr_profitable(a: CSR, b: torch.Tensor, *, force: bool = False) -> bool:
             # several times slower than a sort on tens of millions of keys.
             nblocks = 1 + int(np.count_nonzero(bkey[1:] != bkey[:-1]))
             a._bsr_fill = a.stored / (nblocks * bm * bk)
+            clock.lap("bsr_fill")
         fill = a._bsr_fill
     return fill >= get_config().bsr_min_fill

@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ...runtime import profiling
 from ...utils.config import get_config
 from ..csr import to_tensor
 
@@ -464,7 +465,8 @@ def stream_plan_from_ell(ell, n_rhs: int = 512) -> Optional[StreamPlan]:
     streaming plan from the host mirrors ``csr_to_ell`` keeps, never from a
     device copy. Tiles: config ``cuda_stream_tile_m`` (0: pick_tile_m) and
     ``cuda_stream_tile_k`` (0: one k tile over all columns). Returns
-    ``None`` when no host mirror exists."""
+    ``None`` when no host mirror exists. A plan built is the set-up lap
+    ``spmm.stream_plan``."""
     cfg = get_config()
     tile_m = cfg.cuda_stream_tile_m or pick_tile_m(ell.n_rows, n_rhs)
     tile_k = cfg.cuda_stream_tile_k or max(ell.n_cols, 1)
@@ -473,9 +475,11 @@ def stream_plan_from_ell(ell, n_rhs: int = 512) -> Optional[StreamPlan]:
         cols, vals = ell._host_cols, ell._host_vals
         if cols is None or vals is None:
             return None
+        clock = profiling.Laps("spmm", ell.vals.device)
         rows = np.repeat(np.arange(ell.n_rows), cols.shape[1])
         plan = build_stream_plan(rows, cols.ravel(), vals.ravel(),
                                  ell.n_rows, ell.n_cols, tile_m=tile_m,
                                  tile_k=tile_k, device=ell.vals.device)
         ell._stream_plans[(tile_m, tile_k)] = plan
+        clock.lap("stream_plan")
     return plan

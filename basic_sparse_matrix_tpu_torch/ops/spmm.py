@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..runtime import profiling
 from ..utils.config import get_config, matmul_precision
 from ..utils.errors import IncorrectDimensions, check
 from . import ell as _e
@@ -130,26 +131,51 @@ def spmm_to_csr(a: CSR, b) -> CSR:
     return CSR.from_dense(mul_dense(a, b).cpu().numpy(), device=a.device)
 
 
+def _rung(a: CSR, b: torch.Tensor) -> str:
+    """The ladder's rung for ``a`` × ``b``: ``dense``, ``bsr``, ``ell`` (the
+    ELL path, which picks the streaming kernel or the gather + reduce
+    itself) or ``gather``."""
+    cfg = get_config()
+    if (a.get_density() >= cfg.dense_dispatch_density
+            and 4 * a.rows * a.cols <= cfg.dense_dispatch_max_bytes):
+        return "dense"
+    kernels = (b.is_cuda and a.dtype == torch.float32
+               and b.dtype == torch.float32)
+    if kernels and _k.bsr_profitable(a, b):
+        return "bsr"
+    if a.stored and _e.ell_overhead(a) <= cfg.ell_max_overhead:
+        return "ell"
+    return "gather"
+
+
 def spmm_auto(a: CSR, b: torch.Tensor) -> torch.Tensor:
     """Density-dispatched SpMM (the ladder in the module docstring). A batch
     ``b`` (Bt, K, N) is folded into the columns, (K, Bt·N), multiplied in
-    one pass down the ladder and unfolded to (Bt, M, N)."""
+    one pass down the ladder and unfolded to (Bt, M, N).
+
+    The recorder (``runtime/profiling.py``) sees the choice as the span
+    ``bsm.spmm.dispatch`` and the counter ``spmm.rung.<rung>`` (``dense``,
+    ``bsr``, ``ell``, ``stream`` or ``gather``), and the product as the
+    span ``bsm.spmm.<rung>``. The memoised dense operand is the set-up lap
+    ``spmm.dense_convert``, as the other rungs' layouts are theirs."""
     if b.ndim == 3:
         bt, k, n = b.shape
         folded = b.permute(1, 0, 2).reshape(k, bt * n)
         return spmm_auto(a, folded).reshape(a.rows, bt, n).transpose(0, 1) \
             .contiguous()
-    cfg = get_config()
-    if (a.get_density() >= cfg.dense_dispatch_density
-            and 4 * a.rows * a.cols <= cfg.dense_dispatch_max_bytes):
+    with profiling.span("bsm.spmm.dispatch"):
+        rung = _rung(a, b)
+    if rung == "ell":
+        return _e.spmm_ell_from_csr(a, b)
+    profiling.count("spmm.rung." + rung)
+    with profiling.span("bsm.spmm." + rung):
+        if rung == "bsr":
+            return _k.spmm_bsr_from_csr(a, b)
+        if rung == "gather":
+            return spmm(a, b)
         if a._dense_cache is None:
+            clock = profiling.Laps("spmm", a.device)
             a._dense_cache = a.todense().to(torch.float32)
+            clock.lap("dense_convert")
         with matmul_precision():
             return torch.matmul(a._dense_cache, b.to(torch.float32))
-    kernels = (b.is_cuda and a.dtype == torch.float32
-               and b.dtype == torch.float32)
-    if kernels and _k.bsr_profitable(a, b):
-        return _k.spmm_bsr_from_csr(a, b)
-    if a.stored and _e.ell_overhead(a) <= cfg.ell_max_overhead:
-        return _e.spmm_ell_from_csr(a, b)
-    return spmm(a, b)

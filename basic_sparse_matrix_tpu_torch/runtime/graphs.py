@@ -67,16 +67,29 @@ memory pool go with the owner, and checkpoints never see them.
 ``fn`` must not write to its operands, and must read device values only
 through tensors (its operands or tensors the owner keeps): the graph
 replays the operations it recorded, on the addresses it recorded.
+
+While the recorder is on (``runtime/profiling.py``), :func:`run` counts
+``graphs.eager`` (a counted eager call before the capture),
+``graphs.captures``, ``graphs.evictions``, ``graphs.replays`` (the
+capturing call replays too) and ``graphs.nodes`` (the replayed graph's
+nodes, counted once at its capture and added at each replay), and records
+the spans ``bsm.graphs.capture`` and ``bsm.graphs.replay``; the replay span
+carries ``device_ms`` from a CUDA event pair around ``replay()``. Spans
+inside a captured ``fn`` are recorded at its capture, never at a replay.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
+import functools
 import weakref
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+from . import profiling
 
 # Graphs kept per owner; the least recently used goes first. Four covers a
 # schedule's usual callers, which serve either one device or one mesh: 1
@@ -94,6 +107,7 @@ class _Graph:
     inputs: Tuple[torch.Tensor, ...]    # static copies of the operands
     outputs: Tuple[torch.Tensor, ...]   # static results, in the graph's pool
     single: bool                        # fn returned one tensor
+    nodes: Optional[int]                # the graph's nodes, None if unread
 
 
 @dataclasses.dataclass(eq=False)
@@ -133,20 +147,34 @@ def run(owner, tag, fn: Callable, *operands: torch.Tensor,
     entry = graphs.get(key)
     if entry is None and owned.calls.get(key, 0) + 1 < capture_on:
         owned.calls[key] = owned.calls.get(key, 0) + 1
+        profiling.count("graphs.eager")
         return fn(*operands)
     with torch.cuda.device(operands[0].device):
-        if entry is None:
-            entry = _capture(fn, operands)
+        captured = entry is None
+        if captured:
+            with profiling.span("bsm.graphs.capture"):
+                entry = _capture(fn, operands)
+            profiling.count("graphs.captures")
             owned.calls.pop(key, None)
             graphs[key] = entry
             while len(graphs) > MAX_GRAPHS_PER_OWNER:
                 graphs.popitem(last=False)
+                profiling.count("graphs.evictions")
         else:
             graphs.move_to_end(key)
-            for static, x in zip(entry.inputs, operands):
-                static.copy_(x)
-        entry.graph.replay()
-        outs = tuple(o.clone() for o in entry.outputs)
+        with profiling.span("bsm.graphs.replay") as sp:
+            if not captured:
+                for static, x in zip(entry.inputs, operands):
+                    static.copy_(x)
+            profiling.count("graphs.replays")
+            if entry.nodes is not None:
+                profiling.count("graphs.nodes", entry.nodes)
+            if sp is not None:
+                sp.device_start()
+            entry.graph.replay()
+            if sp is not None:
+                sp.device_end()
+            outs = tuple(o.clone() for o in entry.outputs)
     return outs[0] if entry.single else outs
 
 
@@ -175,11 +203,57 @@ def _capture(fn: Callable, operands) -> _Graph:
     finally:
         torch.cuda.set_sync_debug_mode(sync_mode)
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    try:
+        graph, kept = torch.cuda.CUDAGraph(keep_graph=True), True
+    except TypeError:   # a torch without keep_graph: the count is not read
+        graph, kept = torch.cuda.CUDAGraph(), False
     with torch.cuda.graph(graph):
         out = fn(*inputs)
+    nodes = None
+    if kept:
+        nodes = _node_count(graph)
+        graph.instantiate()
     single = isinstance(out, torch.Tensor)
-    return _Graph(graph, inputs, (out,) if single else tuple(out), single)
+    return _Graph(graph, inputs, (out,) if single else tuple(out), single,
+                  nodes)
+
+
+@functools.lru_cache(maxsize=None)
+def _get_nodes():
+    """``cudaGraphGetNodes`` of the CUDA runtime this process has loaded
+    (torch's), else the driver's ``cuGraphGetNodes`` (the same graph
+    handle); None without either. Both take (graph, NULL, &count)."""
+    try:
+        with open("/proc/self/maps") as f:
+            found = sorted({line.split()[-1] for line in f
+                            if "libcudart" in line})
+    except OSError:
+        found = []
+    for path, name in [(p, "cudaGraphGetNodes") for p in found] \
+            + [("libcuda.so.1", "cuGraphGetNodes")]:
+        try:
+            fn = getattr(ctypes.CDLL(path), name)
+        except (OSError, AttributeError):
+            continue
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_size_t)]
+        fn.restype = ctypes.c_int
+        return fn
+    return None
+
+
+def _node_count(graph) -> Optional[int]:
+    """Nodes of a graph captured with ``keep_graph=True`` (read before it
+    is instantiated), or None where the count cannot be read."""
+    try:
+        raw = graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError):
+        return None
+    fn = _get_nodes()
+    n = ctypes.c_size_t(0)
+    if fn is None or fn(ctypes.c_void_p(raw), None, ctypes.byref(n)) != 0:
+        return None
+    return int(n.value)
 
 
 def count(owner) -> int:

@@ -122,6 +122,26 @@ def test_operator_cg():
     assert op._pcg is setup
 
 
+def test_operator_prepared_solvers_are_public():
+    """``direct_solver`` and ``pcg_setup`` are None until built, then the
+    cached set-ups with their ``timings``; neither can be assigned."""
+    n, r, c, v = _lap3d(5)
+    op = P.SparseOperator(P.CSR.from_coo_arrays((n, n), r, c, v))
+    assert op.direct_solver is None and op.pcg_setup is None
+    b = np.ones(n, np.float32)
+    op.solve(b)
+    assert op.direct_solver is op._direct and op.pcg_setup is None
+    assert {"order", "analyze", "numeric"} <= set(op.direct_solver.timings)
+    op.solve_cg(b)
+    assert op.pcg_setup is op._pcg
+    assert set(op.pcg_setup.timings) == {"analyze", "numeric", "assemble",
+                                         "schedules", "ell"}
+    with pytest.raises(AttributeError):
+        op.direct_solver = None
+    with pytest.raises(AttributeError):
+        op.pcg_setup = None
+
+
 def test_operator_spectral_methods():
     rng = np.random.default_rng(7)
     m = rng.normal(size=(48, 48)).astype(np.float32)

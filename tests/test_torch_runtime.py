@@ -467,11 +467,15 @@ def test_profiling_on_the_cpu_spec():
     assert prof.H100.hbm_bw == 3.35e12 and prof.H100.mxu_f32 == 67e12
     assert prof.H100.tf32 == 495e12 and prof.H100.mxu_bf16 == 989e12
     assert not any("v5e" in n.lower() for n in dir(prof))
-    with prof.timed("unit_op", flops=100.0, bytes_moved=50.0, nnz=10,
-                    device="cpu") as m:
-        torch.ones(10).sum()
+    with prof.recording():
+        with prof.timed("unit_op", flops=100.0, bytes_moved=50.0, nnz=10,
+                        device="cpu") as m:
+            torch.ones(10).sum()
     assert m.seconds > 0 and m.nnz_per_s > 0 and m.gflops_per_s > 0
-    assert prof.all_metrics()["unit_op"] is m
+    # timed records through the recorder: a span carrying the metrics
+    (s,) = prof.snapshot().spans
+    assert s.name == "bsm.unit_op" and s.attrs["nnz"] == 10
+    assert s.attrs["seconds"] == m.seconds and s.attrs["flops"] == 100.0
     assert 0 <= m.roofline_fraction(prof.CPU) < 1e12
     om = prof.OpMetrics(op="x", seconds=0.5, flops=1e9, bytes_moved=1e6,
                         nnz=500)
@@ -480,7 +484,7 @@ def test_profiling_on_the_cpu_spec():
         (1e9 / 67e12) / 0.5)
     js = om.to_json()
     assert '"op": "x"' in js and "gflops_per_s" in js
-    with prof.trace("named-range"):
+    with prof.span("bsm.named-range"):
         pass
 
 
