@@ -13,10 +13,10 @@ Laplacian under nested dissection) it is 3639 × 3398 × 4716 entries, some
 rows, and the off-diagonal entries of those rows as flat ``(cols, vals)``
 with each entry's row slot inside the level (``seg``). The solve runs on
 the unknowns permuted into level order, so a level's rows are one
-contiguous slice and a level is four operations: one gather, one
-multiply, one ``index_add_`` into that slice, then the diagonal scale
-(the solve is bound by the launches of these small operations). The
-tables take O(nnz + n) bytes and are built with vectorised numpy.
+contiguous slice. On the CPU a level is four operations: one gather, one
+multiply, one ``index_add_`` into that slice, then the diagonal scale; on
+the card it is K7 (below). The tables take O(nnz + n) bytes and are built
+with vectorised numpy.
 
 Batched values (the counterpart of ``jax.vmap(_solve_scheduled)`` over
 schedules stacked from ``Bt`` factors of one pattern): the schedule also
@@ -28,10 +28,16 @@ same four operations for the whole batch. :func:`factor_pattern` and
 :func:`csr_value_order` map a factorization's CSC value order to ``l``'s
 CSR order, so factor → solve needs no host round trip per system.
 
-On the card the level loop runs as one captured CUDA graph per (schedule,
-operand shapes), replayed on every later solve (``runtime/graphs.py``: the
-counterpart of the JAX package's ``jax.jit``); on the CPU it runs as it
-is.
+On the card the level loop is the hand-written kernel K7
+(``csrc/trsv_level.cu``): one launch does a wide level on many blocks, or a
+run of consecutive narrow levels on one block with a barrier between
+levels (:func:`launch_plan`, built with the schedule), every launch
+overlapping the one before (programmatic dependent launch). It runs inside one
+captured CUDA graph per (schedule, operand shapes), replayed on every later
+solve (``runtime/graphs.py``: the counterpart of the JAX package's
+``jax.jit``). On the CPU the four-operation loop runs as it is: it is K7's
+plain version. On the card each solve counts ``trsv.launches`` (K7's
+launches) and ``trsv.levels`` in the recorder (``runtime/profiling.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +53,20 @@ from ..ops.csr import CSR, to_tensor
 from ..runtime import graphs, profiling, symbolic
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 
+# K7's plan. A level is narrow, and joins a run of levels that one block
+# walks, when one block finishes it faster than a launch costs: at most
+# NARROW_ROWS rows and NARROW_ENTRIES off-diagonal entries, the limits that
+# gave the fastest whole solves on the H100 (probes/trsv_probe.py --plans;
+# PERF.md, PR 17). Wider levels get a launch each. The kernel is right for
+# any plan; these limits only pick the faster launch.
+NARROW_ROWS = 4
+NARROW_ENTRIES = 12288
+# Threads of a wide level's block (csrc/trsv_level.cu's WIDE_THREADS): the
+# plan gives a wide level blocks enough for a team of threads a row.
+WIDE_THREADS = 256
+# Launches of K7 in this process (a plain counter that a caller may reset).
+LAUNCHES = 0
+
 
 @dataclasses.dataclass(eq=False)
 class TriangularSchedule:
@@ -59,7 +79,12 @@ class TriangularSchedule:
     ``inv_diag`` each row's reciprocal diagonal (in level order).
     ``val_pos`` and ``diag_pos`` are the positions in ``l.values`` (the
     matrix the schedule was built from, in its CSR order) of ``vals`` and
-    of the diagonal behind ``inv_diag`` (:func:`schedule_values`)."""
+    of the diagonal behind ``inv_diag`` (:func:`schedule_values`).
+
+    K7's tables: ``cols32`` (``cols`` as int32), ``row_ent`` (each
+    level-order row's first entry, and the end), ``levels`` (each level's
+    first row and first entry, and the ends) on the device, and ``plan``,
+    K7's launches on the host (:func:`launch_plan`)."""
 
     rows: torch.Tensor      # (n,) int64, rows in level order
     inv_diag: torch.Tensor  # (n,) float32
@@ -68,6 +93,10 @@ class TriangularSchedule:
     seg: torch.Tensor       # (nnz_off,) int64
     val_pos: torch.Tensor   # (nnz_off,) int64 into l.values
     diag_pos: torch.Tensor  # (n,) int64 into l.values, level order
+    cols32: torch.Tensor    # (nnz_off,) int32, cols for K7
+    row_ent: torch.Tensor   # (n + 1,) int32, entries of level-order rows
+    levels: torch.Tensor    # (n_levels + 1, 2) int32, row and entry starts
+    plan: np.ndarray        # (launches, 3) int32 on the host, launch_plan
     row_ptr: Tuple[int, ...]
     ent_ptr: Tuple[int, ...]
     n: int
@@ -80,7 +109,8 @@ class TriangularSchedule:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
-            self.rows, self.inv_diag, self.cols, self.vals, self.seg))
+            self.rows, self.inv_diag, self.cols, self.vals, self.seg,
+            self.cols32, self.row_ent, self.levels))
 
 
 def _mirror(n: int, indptr, indices, values):
@@ -134,6 +164,8 @@ def build_schedule(l: CSR, *, lower: bool = True) -> TriangularSchedule:
     ecount = np.bincount(level[orow], minlength=nlev)
     ent_ptr = np.concatenate([[0], np.cumsum(ecount)])
     seg = slot_of[orow] - row_ptr[level[orow]]
+    row_ent = np.concatenate([[0], np.cumsum(np.bincount(
+        slot_of[orow], minlength=n))])
     dev = l.device
     return TriangularSchedule(
         rows=to_tensor(order.astype(np.int64), dev),
@@ -143,11 +175,51 @@ def build_schedule(l: CSR, *, lower: bool = True) -> TriangularSchedule:
         seg=to_tensor(seg.astype(np.int64), dev),
         val_pos=to_tensor(src[off][eorder], dev),
         diag_pos=to_tensor(dpos[order], dev),
+        cols32=to_tensor(slot_of[indices[off][eorder]].astype(np.int32), dev),
+        row_ent=to_tensor(row_ent.astype(np.int32), dev),
+        levels=to_tensor(np.stack([row_ptr, ent_ptr], 1).astype(np.int32),
+                         dev),
+        plan=launch_plan(row_ptr, ent_ptr),
         row_ptr=tuple(int(v) for v in row_ptr),
         ent_ptr=tuple(int(v) for v in ent_ptr),
         n=n,
         lower=lower,
     )
+
+
+def launch_plan(row_ptr, ent_ptr) -> np.ndarray:
+    """K7's launches for levels with these row and entry pointers: (first
+    level, end level, blocks) int32 rows in level order, covering every
+    level once. A run of consecutive narrow levels (``NARROW_ROWS``,
+    ``NARROW_ENTRIES``) is one launch on one block (blocks 0); every other
+    level is a launch of its own on :func:`wide_blocks` blocks."""
+    rows = np.diff(np.asarray(row_ptr, dtype=np.int64))
+    ents = np.diff(np.asarray(ent_ptr, dtype=np.int64))
+    return plan_of(rows, ents,
+                   (rows <= NARROW_ROWS) & (ents <= NARROW_ENTRIES))
+
+
+def plan_of(rows: np.ndarray, ents: np.ndarray,
+            narrow: np.ndarray) -> np.ndarray:
+    """:func:`launch_plan` for levels of ``rows`` rows and ``ents``
+    entries, the ``narrow`` ones in runs."""
+    after_narrow = np.zeros_like(narrow)
+    after_narrow[1:] = narrow[:-1]
+    first = ~narrow | ~after_narrow
+    starts = np.nonzero(first)[0]
+    ends = np.concatenate([starts[1:], [rows.size]])[:starts.size]
+    blocks = np.where(narrow, 0, wide_blocks(rows, ents))[starts]
+    return np.ascontiguousarray(
+        np.stack([starts, ends, blocks], 1).astype(np.int32))
+
+
+def wide_blocks(rows: np.ndarray, ents: np.ndarray) -> np.ndarray:
+    """Blocks of ``WIDE_THREADS`` for levels of ``rows`` rows and ``ents``
+    entries launched wide: a team a row, of the least power of two at or
+    above the mean row length, at most a block."""
+    mean = np.minimum(-(-ents // np.maximum(rows, 1)), WIDE_THREADS)
+    team = 1 << np.ceil(np.log2(np.maximum(mean, 1))).astype(np.int64)
+    return -(-rows * team // WIDE_THREADS)
 
 
 def schedule_values(sched: TriangularSchedule, l_values: torch.Tensor
@@ -202,13 +274,26 @@ def _solve_scheduled(sched: TriangularSchedule, b: torch.Tensor,
                      ) -> torch.Tensor:
     """The level loop on ``b`` (n[, k]) with the schedule's values, or on
     ``b`` (Bt, n[, k]) with batched ``vals`` (Bt, nnz_off) and ``inv_diag``
-    (Bt, n) (:func:`schedule_values`): the same operations along the
-    unknowns' axis ``d``."""
+    (Bt, n) (:func:`schedule_values`): K7 on the card, its plain version on
+    the CPU."""
     d = 0 if vals is None else 1           # the unknowns' axis
     if vals is None:
         vals, inv_diag = sched.vals, sched.inv_diag
     # y holds the unknowns in level order: level l is y[r0:r1] on axis d.
     y = b.to(torch.float32).index_select(d, sched.rows)
+    if y.is_cuda:
+        _levels_cuda(sched, y, vals, inv_diag)
+    else:
+        _levels_plain(sched, y, vals, inv_diag)
+    return torch.empty_like(y).index_copy_(d, sched.rows, y)
+
+
+def _levels_plain(sched: TriangularSchedule, y: torch.Tensor,
+                  vals: torch.Tensor, inv_diag: torch.Tensor) -> None:
+    """K7's plain version: the level loop on ``y`` in level order, in
+    place, four operations a level along the unknowns' axis ``d`` (1 with
+    batched values)."""
+    d = vals.ndim - 1
     tail = (1,) * (y.ndim - d - 1)
     vals = vals.reshape(vals.shape + tail)
     inv_diag = inv_diag.reshape(inv_diag.shape + tail)
@@ -221,7 +306,45 @@ def _solve_scheduled(sched: TriangularSchedule, b: torch.Tensor,
                 * vals.narrow(d, e0, e1 - e0)
             level.index_add_(d, sched.seg[e0:e1], prod, alpha=-1)
         level.mul_(inv_diag.narrow(d, r0, r1 - r0))
-    return torch.empty_like(y).index_copy_(d, sched.rows, y)
+
+
+def _levels_cuda(sched: TriangularSchedule, y: torch.Tensor,
+                 vals: torch.Tensor, inv_diag: torch.Tensor) -> None:
+    """K7 (``csrc/trsv_level.cu``): the level loop on CUDA ``y`` (n[, k]),
+    or (Bt, n[, k]) with ``vals`` (Bt, nnz_off) and ``inv_diag`` (Bt, n),
+    in place, as the schedule's plan of launches on the current stream.
+    Counts ``trsv.launches`` and ``trsv.levels`` in the recorder."""
+    global LAUNCHES
+    from ..runtime import cuda_kernels
+
+    batched = vals.ndim == 2
+    bt = int(y.shape[0]) if batched else 1
+    k = y.numel() // max(bt * sched.n, 1)   # trailing axes, flattened
+    vals, inv_diag = vals.contiguous(), inv_diag.contiguous()
+    for name, t in (("y", y), ("vals", vals), ("inv_diag", inv_diag)):
+        if t.dtype != torch.float32 or t.device != y.device:
+            raise ValueError(f"trsv: {name} must be float32 on {y.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if not y.is_contiguous() or sched.cols32.device != y.device:
+        raise ValueError("trsv: y must be contiguous, on the schedule's "
+                         "device")
+    if sched.ent_ptr[-1] >= 2**31:
+        raise ValueError(f"trsv: {sched.ent_ptr[-1]} entries exceed K7's "
+                         f"int32 tables")
+    lib = cuda_kernels.load()
+    plan = sched.plan
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        status = lib.bsm_trsv(
+            y.data_ptr(), vals.data_ptr(), inv_diag.data_ptr(),
+            sched.cols32.data_ptr(), sched.row_ent.data_ptr(),
+            sched.levels.data_ptr(), plan.ctypes.data, len(plan), sched.n,
+            k, bt, sched.ent_ptr[-1], vals.shape[-1] if batched else 0,
+            sched.n if batched else 0, stream)
+    LAUNCHES += len(plan)
+    cuda_kernels.check_launch(lib, status, "trsv")
+    profiling.count("trsv.launches", len(plan))
+    profiling.count("trsv.levels", sched.n_levels)
 
 
 def solve_triangular_sparse(l: CSR, b,

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm_bsr.cu", "spmm_stream.cu", "runs_read.cu", "addback.cu",
-           "entry_fma.cu")
+           "entry_fma.cu", "trsv_level.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -68,6 +68,11 @@ _SIGNATURES = {
     "bsm_addback_rects": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ii, kk, vv, B, C, entries, rows, lanes, vec, stream
     "bsm_entry_fma": [_P] * 5 + [_LL, _I, _I, _I, _P],
+    # y, vals, inv_diag, cols, eptr, levels, plan (host), launches, n, k,
+    # bt, nnz, vstride, dstride, stream
+    "bsm_trsv": [_P] * 7 + [_I] * 4 + [_LL, _LL, _LL, _P],
+    # out[6]
+    "bsm_trsv_info": [_P],
 }
 
 

@@ -76,6 +76,10 @@ nodes, counted once at its capture and added at each replay), and records
 the spans ``bsm.graphs.capture`` and ``bsm.graphs.replay``; the replay span
 carries ``device_ms`` from a CUDA event pair around ``replay()``. Spans
 inside a captured ``fn`` are recorded at its capture, never at a replay.
+Counts made inside a captured ``fn`` (``trsv.launches``) are the graph's:
+tallied at its capture (``profiling.tally``; the warm-up's are dropped)
+and added at each replay, the capturing call's included, as the work the
+replay does.
 """
 
 from __future__ import annotations
@@ -108,6 +112,7 @@ class _Graph:
     outputs: Tuple[torch.Tensor, ...]   # static results, in the graph's pool
     single: bool                        # fn returned one tensor
     nodes: Optional[int]                # the graph's nodes, None if unread
+    counts: dict                        # counts fn made at the capture
 
 
 @dataclasses.dataclass(eq=False)
@@ -169,6 +174,8 @@ def run(owner, tag, fn: Callable, *operands: torch.Tensor,
             profiling.count("graphs.replays")
             if entry.nodes is not None:
                 profiling.count("graphs.nodes", entry.nodes)
+            for name, n in entry.counts.items():
+                profiling.count(name, n)
             if sp is not None:
                 sp.device_start()
             entry.graph.replay()
@@ -198,7 +205,7 @@ def _capture(fn: Callable, operands) -> _Graph:
     sync_mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.tally():
             fn(*inputs)
     finally:
         torch.cuda.set_sync_debug_mode(sync_mode)
@@ -207,7 +214,7 @@ def _capture(fn: Callable, operands) -> _Graph:
         graph, kept = torch.cuda.CUDAGraph(keep_graph=True), True
     except TypeError:   # a torch without keep_graph: the count is not read
         graph, kept = torch.cuda.CUDAGraph(), False
-    with torch.cuda.graph(graph):
+    with profiling.tally() as counts, torch.cuda.graph(graph):
         out = fn(*inputs)
     nodes = None
     if kept:
@@ -215,7 +222,7 @@ def _capture(fn: Callable, operands) -> _Graph:
         graph.instantiate()
     single = isinstance(out, torch.Tensor)
     return _Graph(graph, inputs, (out,) if single else tuple(out), single,
-                  nodes)
+                  nodes, dict(counts))
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,11 @@ session's record until the next session begins. A profiler session is seen
 to begin at the first span or counter while it is active, and to end at the
 first call into the recorder (a snapshot included) after it.
 
+Counts made inside a :func:`tally` block go to the tally and are not
+recorded: ``runtime/graphs.py`` tallies a graph's capture and adds the
+graph's counts at each of its replays, so a counter inside a captured loop
+(``trsv.launches``) counts the work each replay does.
+
 **Set-up laps** (:class:`Laps`) are always taken: they happen once per
 set-up. Each is written to its owner's ``timings`` dict and to a
 process-wide table under ``<owner>.<phase>`` (the last value), and while
@@ -265,6 +270,8 @@ class _Recorder:
 
 
 _REC = _Recorder()
+# Open tallies, the innermost last (:func:`tally`).
+_TALLIES: list = []
 # name -> seconds, the last lap of each ``<owner>.<phase>``.
 _LAPS: Dict[str, float] = {}
 
@@ -282,10 +289,26 @@ def span(name: str, **attrs):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while recording is on."""
+    """Add ``n`` to the counter ``name`` while recording is on, or to the
+    innermost open :func:`tally`."""
+    if _TALLIES:
+        _TALLIES[-1][name] += n
+        return
     rec = _REC.active()
     if rec is not None:
         rec.counters[name] += n
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[collections.Counter]:
+    """Collect the counts made inside the block into the Counter it
+    yields, whether recording is on or off; they are not recorded."""
+    counts: collections.Counter = collections.Counter()
+    _TALLIES.append(counts)
+    try:
+        yield counts
+    finally:
+        _TALLIES.pop()
 
 
 @contextlib.contextmanager

@@ -19,8 +19,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. Device: the card's name and ``nvidia-smi``'s name and power limit.
 2. Build: the K1 (BSR), K2 (streaming: tile and sliced kernels), K3 (run
-   reads), K4/K5 (add-back: span and rect entries) and K6 (per-entry FMA)
-   kernels from
+   reads), K4/K5 (add-back: span and rect entries), K6 (per-entry FMA)
+   and K7 (the triangular solve's level step) kernels from
    ``basic_sparse_matrix_tpu_torch/csrc`` with nvcc, one process per
    source, timed; the ptxas register/spill lines.
 3. Kernel vs plain: each kernel and its plain PyTorch version on the card
@@ -280,6 +280,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     in the smoke (the measurement behind keeping them op by op). Phase
     19 runs under ``eager_loops()`` and phase 20 runs its sharded calls
     under it, so their numbers stay eager.
+
+25. K7 (``csrc/trsv_level.cu``, the triangular solve's level step; run
+    after phase 18): its time at the median level of IC(0) of HPCG's
+    operator at 104³ (a wide launch) and on the longest narrow run of the
+    32³ nested-dissection factor (one block), and both forward solves,
+    each captured in a CUDA graph beside the plain version (four
+    operations a level) and the bound; each solve within 1e-5·max|ref| of
+    the plain version (``probes/trsv_probe.py::hpcg_rows``). Its row in
+    the ``kernels`` line counts phase 6's launches.
 
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
@@ -576,10 +585,12 @@ def kernel_modules():
     from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read
     from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel
     from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel
+    from basic_sparse_matrix_tpu_torch.models import sparse_triangular
 
     return {"spmm_bsr": spmm_kernel, "spmm_stream": stream_kernel,
             "runs_read": runs_read, "addback_resident": addback_resident,
-            "panel_addback": panel_addback, "entry_fma": entry_fma}
+            "panel_addback": panel_addback, "entry_fma": entry_fma,
+            "trsv_level": sparse_triangular}
 
 
 def zero_launches() -> None:
@@ -1856,6 +1867,35 @@ def k6_phase(dev, k2_main: float) -> dict:
             "launches": launches["entry_fma"], **timing}
 
 
+def k7_phase(dev, launches: int) -> dict:
+    """Phase 25: K7, the triangular solve's level step, against its plain
+    version (four operations a level) and its bound where the benchmark
+    runs it: the median level of IC(0) of HPCG's operator at 104³ (a wide
+    launch), the longest narrow run of its nested-dissection factor at 32³
+    (one block), and both forward solves, each inside a CUDA graph
+    (``probes/trsv_probe.py::hpcg_rows``, which also holds each solve to the
+    plain version). ``launches`` is phase 6's count."""
+    from basic_sparse_matrix_tpu_torch.probes import trsv_probe as probe
+
+    log("trsv_level (K7) vs plain on the card (CUDA events around graph "
+        "replays):")
+    rows = {r["case"]: r for r in probe.hpcg_rows(dev)}
+    for r in rows.values():
+        log(f"  {r['case']}: {r['levels']} levels, {r['rows']} rows, "
+            f"{r['entries']} entries: K7 {r['kernel_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms (bytes)")
+    level = rows["104³ IC(0), median level"]
+    keep = ("levels", "rows", "entries", "kernel_ms", "plain_ms", "bound_ms")
+    return {"name": "trsv_level", "route": "cuda",
+            "source": "basic_sparse_matrix_tpu_torch/csrc/trsv_level.cu",
+            "replaces": "none (the JAX package's level step is plain jnp)",
+            "launches": launches, "ms": level["kernel_ms"],
+            "plain_ms": level["plain_ms"], "bound_ms": level["bound_ms"],
+            "bound_by": "bytes",
+            "cases": {name: {k: r[k] for k in keep}
+                      for name, r in rows.items()}}
+
+
 # ---- 19. the distributed layer (parallel/) on logical shards and NCCL -----
 PAR_SHARDS = 4            # (a), (c), (d): logical ranks on the one card
 PAR_SERVING_SHARDS = 8    # (b): rps 4,493 at n = 35,937
@@ -2895,8 +2935,10 @@ def fmt_ms(st: dict) -> str:
 
 
 # The ported kernels a captured program holds, by the names of their
-# __global__ functions: K3, the add-back's rect entry, K2 (tile, sliced).
-KERNEL_NAMES = {"runs_read": ("runs_read_kernel",),
+# __global__ functions: K7 (run, wide), K3, the add-back's rect entry, K2
+# (tile, sliced).
+KERNEL_NAMES = {"trsv_level": ("trsv_run", "trsv_wide"),
+                "runs_read": ("runs_read_kernel",),
                 "addback_rects": ("addback_rects_kernel",),
                 "spmm_stream": ("stream_spmm_kernel", "stream_sliced_kernel")}
 # Parts of library kernel names that say which backend a dense factor took
@@ -3950,6 +3992,7 @@ def main() -> None:
         kernels.append({"route": "cuda",
                         "launches": main["launches"][k["name"]], **k})
     solver6 = main["solver"]    # phase 21(a) factors on its schedule
+    k7_launches = main["launches"]["trsv_level"]
     del main
 
     # ---- 8. per-formulation factors, card vs CPU ------------------------
@@ -3972,6 +4015,12 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.append(k6_phase(dev, k2_ns_per_entry))
     log(f"  [k6_phase: {time.perf_counter() - t0:.1f} s]")
+
+    # ---- 25. K7 at the benchmark's shapes ----------------------------------
+    t0 = time.perf_counter()
+    kernels.append(k7_phase(dev, k7_launches))
+    torch.cuda.empty_cache()
+    log(f"  [k7_phase: {time.perf_counter() - t0:.1f} s]")
 
     # ---- 20. parallel/: the distributed direct solvers and BCR -----------
     t0 = time.perf_counter()

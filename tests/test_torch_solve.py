@@ -5,6 +5,8 @@ CPU.
   padded one on the same factor, lower and upper (mirrored), 1 and 3
   right-hand sides: ``rtol=1e-5``, ``atol=1e-6·max|ref|`` (float32 sums in
   another order). Its tables grow with nnz, not with levels × rows × deps.
+  The level-step kernel's launch plan covers every level once, in order,
+  within its narrow limits, and the CPU solve still equals JAX's.
 * ``DirectSolver`` / ``solve_sparse`` end to end under ``ordering`` nd, rcm
   and auto (the banded tier switched off where it would be picked, in both
   packages) against the JAX solution, ``rtol=1e-4`` with ``atol=1e-5·max``
@@ -141,6 +143,51 @@ def test_schedule_levels_match_jax_and_stay_ragged(configs):
     want = np.asarray(jst.solve_triangular_sparse(jl, b, js))
     np.testing.assert_allclose(
         pst.solve_triangular_sparse(pl, torch.as_tensor(b), ps).numpy(),
+        want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("limits", [(256, 12288), (3, 60)])
+@pytest.mark.parametrize("lower", [True, False])
+def test_launch_plan_covers_every_level_once(configs, monkeypatch, limits,
+                                             lower):
+    """The level-step kernel's plan on the 7³ Laplacian's ND factor, at the
+    port's narrow limits and at small ones (wide launches and runs mixed):
+    every level once and in order, each run maximal and within both
+    limits, each wide launch one wider level. The CPU solve, which the plan
+    does not touch, still equals the JAX package's."""
+    monkeypatch.setattr(pst, "NARROW_ROWS", limits[0])
+    monkeypatch.setattr(pst, "NARROW_ENTRIES", limits[1])
+    configs(ordering="nd", banded_max_block=0)
+    n, r, c, v = _lap(7, 3)
+    pl = P.prepare_direct(P.CSR.from_coo_arrays((n, n), r, c, v))._l
+    indptr, indices, values = pl.numpy()
+    jl = J.CSR.from_coo_arrays(
+        (n, n), np.repeat(np.arange(n), np.diff(indptr)), indices, values,
+        sum_duplicates=False, drop_zeros=False)
+    if not lower:
+        pl, jl = pl.transpose(), jl.transpose()
+    ps = pst.build_schedule(pl, lower=lower)
+    rows, ents = np.diff(ps.row_ptr), np.diff(ps.ent_ptr)
+    narrow = (rows <= limits[0]) & (ents <= limits[1])
+    plan = ps.plan
+    assert plan[0, 0] == 0 and plan[-1, 1] == ps.n_levels
+    assert np.array_equal(plan[1:, 0], plan[:-1, 1])
+    for lv0, lv1, blocks in plan:
+        assert lv1 > lv0
+        if blocks == 0:
+            assert narrow[lv0:lv1].all()
+            assert (lv0 == 0 or not narrow[lv0 - 1]) \
+                and (lv1 == ps.n_levels or not narrow[lv1])
+        else:
+            assert lv1 == lv0 + 1 and not narrow[lv0]
+    if limits[0] < 256:
+        assert len(set(np.sign(plan[:, 2]))) == 2
+    b = np.random.default_rng(9).standard_normal((n, 2)).astype(np.float32)
+    want = np.asarray(jst.solve_triangular_sparse(
+        jl, b, jst.build_schedule(jl, lower=lower), lower=lower))
+    np.testing.assert_allclose(
+        pst.solve_triangular_sparse(pl, torch.as_tensor(b), ps,
+                                    lower=lower).numpy(),
         want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
 
 

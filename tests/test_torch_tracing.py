@@ -10,11 +10,16 @@ rung the dispatch caches show; the eager PCG loop's host reads are counted;
 the IC(0) and direct set-ups write their laps to their ``timings`` and to
 the laps table.
 
+A tally (``profiling.tally``) takes the counts made inside it.
+
 The ``cuda``-marked cases run on the card (this file imports no JAX): a
 second solve replays without capturing, the graphs' node counts are read
-and the replays carry device times, and a fifth key evicts a graph.
+and the replays carry device times, the level-step kernel's counters are
+counted at the capture and at each replay, and a fifth key evicts a
+graph.
 """
 
+import contextlib
 import dataclasses
 import time
 
@@ -128,6 +133,24 @@ def test_recording_nests_spans_with_parents_and_requests():
     with prof.recording():
         pass
     assert prof.snapshot().spans == () and prof.snapshot().counters == {}
+
+
+@pytest.mark.parametrize("recording", [True, False])
+def test_a_tally_takes_the_counts_made_inside_it(recording):
+    """What ``runtime/graphs.py`` keeps of a capture: counts inside a tally
+    go to the innermost one, recording on or off, and are not recorded."""
+    before = prof.snapshot().counters
+    with prof.recording() if recording else contextlib.nullcontext():
+        prof.count("outside")
+        with prof.tally() as outer:
+            prof.count("inside", 2)
+            with prof.tally() as inner:
+                prof.count("inner")
+            prof.count("inside")
+        prof.count("outside", 4)
+    assert outer == {"inside": 3} and inner == {"inner": 1}
+    assert prof.snapshot().counters == ({"outside": 5} if recording
+                                        else before)
 
 
 def test_spans_sit_on_the_cpu_profilers_timeline():
@@ -294,6 +317,22 @@ def test_a_second_solve_replays_without_capturing(cuda):
     assert len(replays) == 2
     assert all(s.attrs["device_ms"] > 0 for s in replays)
     torch.testing.assert_close(x, solver.solve(b))
+
+
+@pytest.mark.cuda
+def test_trsv_counters_count_every_solve(cuda):
+    """``trsv.launches`` (the level-step kernel's launches) and
+    ``trsv.levels``, counted at the capturing solve and at each replay."""
+    solver = _scatter_solver(cuda)
+    b = torch.ones(200, device=cuda)
+    with prof.recording():
+        for _ in range(3):
+            solver.solve(b)
+    c = prof.snapshot().counters
+    fwd, bwd = solver._fwd, solver._bwd
+    assert c["graphs.captures"] == 2 and c["graphs.replays"] == 6
+    assert c["trsv.launches"] == 3 * (len(fwd.plan) + len(bwd.plan))
+    assert c["trsv.levels"] == 3 * (fwd.n_levels + bwd.n_levels)
 
 
 @pytest.mark.cuda
