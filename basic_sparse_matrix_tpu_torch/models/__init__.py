@@ -6,6 +6,7 @@ from .qr import (eigen_values, eigen_values_dense, eigen_values_sym, qr_decomp,
 from .chebyshev import chebyshev_solve, spectral_bounds
 from .lanczos import (LanczosSetup, condition_estimate,
                       eigen_values_lanczos, extremal_eigen_values)
+from .multigrid import MultigridSetup, injection_map
 from .operator import SparseOperator
 from .pcg import PCGSetup, pcg_solve
 from .solve import (DirectSolver, prepare_direct, solve, solve_auto,
@@ -44,6 +45,8 @@ __all__ = [
     "DirectSolver",
     "pcg_solve",
     "PCGSetup",
+    "MultigridSetup",
+    "injection_map",
     "SparseOperator",
     "forward_substitution",
     "backward_substitution",

@@ -3,14 +3,14 @@
 Counterpart of ``basic_sparse_matrix_tpu/models/operator.py``. Production
 use reuses one matrix across many multiplies and solves; a
 :class:`SparseOperator` prepares each piece once (format conversions,
-factorization and solve schedules, the IC(0) preconditioner, the Lanczos
+factorization and solve schedules, the PCG preconditioner, the Lanczos
 set-up) and keeps it for the next call.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -26,7 +26,8 @@ class SparseOperator:
     ``matmul``/``matvec`` reuse the dispatch caches on the CSR instance
     (``mul_dense``'s ladder, so the BSR and streaming kernels run where it
     picks them); ``solve`` builds and caches a :class:`DirectSolver`;
-    ``solve_cg`` the IC(0)-PCG set-up; ``solve_chebyshev``,
+    ``solve_cg`` the IC(0)-PCG set-up, unless ``use_multigrid`` gave it
+    HPCG's multigrid preconditioner first; ``solve_chebyshev``,
     ``eigen_values`` and ``condition_estimate`` share one Lanczos set-up.
     ``direct_solver`` and ``pcg_setup`` give the prepared solvers (None
     until built), and with them their set-up ``timings``.
@@ -49,7 +50,20 @@ class SparseOperator:
 
     @property
     def pcg_setup(self):
-        """The IC(0) ``PCGSetup`` that ``solve_cg`` built, or None."""
+        """The set-up ``solve_cg`` runs: the IC(0) ``PCGSetup`` it built,
+        the ``MultigridSetup`` of :meth:`use_multigrid`, or None."""
+        return self._pcg
+
+    def use_multigrid(self, coarse: Sequence[CSR],
+                      f2c: Sequence[torch.Tensor]):
+        """Build HPCG's multigrid preconditioner now
+        (``models/multigrid.MultigridSetup``) over this operator and the
+        coarser operators ``coarse``, ``f2c[ℓ]`` giving each row of level
+        ℓ+1 its row of level ℓ (``multigrid.injection_map``), and make
+        ``solve_cg`` use it in place of IC(0). Returns the set-up."""
+        from .multigrid import MultigridSetup
+
+        self._pcg = MultigridSetup.build([self.a, *coarse], f2c)
         return self._pcg
 
     # ------------------------------------------------------------------ #
@@ -86,8 +100,9 @@ class SparseOperator:
             return self._ensure_direct().solve(b)
 
     def solve_cg(self, b, tol: float = 1e-6, max_iters: int = 1000):
-        """IC(0)-preconditioned CG; the preconditioner is built once.
-        Returns (x, iterations, final relative residual)."""
+        """Preconditioned CG: IC(0), built once at the first call, or the
+        multigrid set-up of :meth:`use_multigrid`. Returns (x, iterations,
+        final relative residual)."""
         from .pcg import PCGSetup, pcg_solve
 
         with profiling.span("bsm.solve_cg"):

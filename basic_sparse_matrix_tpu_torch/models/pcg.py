@@ -1,4 +1,5 @@
-"""Preconditioned conjugate gradient with an IC(0) preconditioner.
+"""Preconditioned conjugate gradient, with an IC(0) preconditioner by
+default.
 
 Counterpart of ``basic_sparse_matrix_tpu/models/pcg.py``, built from the
 port's own parts:
@@ -10,13 +11,18 @@ port's own parts:
 * its application: two level-scheduled triangular solves per iteration
   (``models/sparse_triangular``).
 
+The loop takes any set-up with :class:`PCGSetup`'s interface
+(:class:`Preconditioned`: ``a``, ``matvec``, ``apply_m_inv``, ``timings``);
+``models/multigrid.py``'s ``MultigridSetup`` (HPCG's V-cycle) is the other
+one. The graphs are keyed on the set-up, so each has its own.
+
 The JAX package's ``lax.while_loop`` keeps its stopping rule
 (``‖r‖/‖b‖ > tol`` in float32 and ``it < max_iters``). On the CPU it is a
 Python loop that reads ‖r‖ every iteration (:func:`_pcg_loop`). On the card
-it runs in chunks of ``CHUNK`` iterations, each a captured CUDA graph that
-evaluates the rule on the device and masks the steps past the end; the
-host reads one flag per chunk (:func:`_pcg_chunked`). Both take the same
-iterations to the same result.
+it runs in chunks of ``CHUNK`` iterations (or the set-up's own ``chunk``),
+each a captured CUDA graph that evaluates the rule on the device and masks
+the steps past the end; the host reads one flag per chunk
+(:func:`_pcg_chunked`). Both take the same iterations to the same result.
 
 The recorder (``runtime/profiling.py``) sees the start as the span
 ``bsm.pcg.start``, each chunk as ``bsm.pcg.chunk`` and each host read
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Protocol, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +51,43 @@ from .sparse_triangular import (
     build_schedule,
     solve_triangular_sparse,
 )
+
+
+class Preconditioned(Protocol):
+    """What the loop takes of a set-up: the operator ``a`` (its device),
+    ``matvec`` (A·x), ``apply_m_inv`` (M⁻¹·r, M symmetric positive
+    definite) and the set-up laps ``timings``. A set-up must be hashable
+    by identity: it owns the loop's graphs."""
+
+    a: CSR
+    timings: dict
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor: ...
+
+    def apply_m_inv(self, r: torch.Tensor) -> torch.Tensor: ...
+
+
+def ell_view(a: CSR) -> Optional[ELL]:
+    """``a``'s ELL layout where the padding overhead permits
+    (``ell_max_overhead``), else None."""
+    from ..ops.ell import csr_to_ell, ell_overhead
+    from ..utils.config import get_config
+
+    if a.stored and ell_overhead(a) <= get_config().ell_max_overhead:
+        return csr_to_ell(a)
+    return None
+
+
+def spmv_with(a: CSR, ell: Optional[ELL], x: torch.Tensor) -> torch.Tensor:
+    """``a·x`` through ``a``'s ELL view ``ell`` (:func:`ell_view`), or the
+    gather/segment sum where it has none."""
+    if ell is not None:
+        from ..ops.ell import spmv_ell
+
+        return spmv_ell(ell, x)
+    from ..ops.spmm import spmv
+
+    return spmv(a, x)
 
 
 @dataclasses.dataclass(eq=False)
@@ -82,26 +125,15 @@ class PCGSetup:
 
     @staticmethod
     def _finish(a: CSR, l: CSR, clock: profiling.Laps) -> "PCGSetup":
-        from ..ops.ell import csr_to_ell, ell_overhead
-        from ..utils.config import get_config
-
         fwd = build_schedule(l, lower=True)
         bwd = build_schedule(l.transpose(), lower=False)
         clock.lap("schedules")
-        ell = None
-        if a.stored and ell_overhead(a) <= get_config().ell_max_overhead:
-            ell = csr_to_ell(a)
+        ell = ell_view(a)
         clock.lap("ell")
         return PCGSetup(a=a, fwd=fwd, bwd=bwd, ell=ell, timings=clock.out)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        if self.ell is not None:
-            from ..ops.ell import spmv_ell
-
-            return spmv_ell(self.ell, x)
-        from ..ops.spmm import spmv
-
-        return spmv(self.a, x)
+        return spmv_with(self.a, self.ell, x)
 
     def apply_m_inv(self, r: torch.Tensor) -> torch.Tensor:
         """``(L Lᵀ)⁻¹ r``: the backward schedule is already mirrored inside
@@ -110,7 +142,7 @@ class PCGSetup:
         return solve_triangular_sparse(None, y, self.bwd, lower=False)
 
 
-def _pcg_start(setup: PCGSetup, b: torch.Tensor):
+def _pcg_start(setup: Preconditioned, b: torch.Tensor):
     """The loop's carry before the first iteration: (x, r, p, rz) and the
     clamped ‖b‖."""
     with profiling.span("bsm.pcg.start"):
@@ -127,7 +159,7 @@ def _read(x: torch.Tensor, kind: type):
         return kind(x)
 
 
-def _pcg_step(setup: PCGSetup, x, r, p, rz):
+def _pcg_step(setup: Preconditioned, x, r, p, rz):
     """One CG iteration: the new (x, r, p, rz)."""
     ap = setup.matvec(p)
     alpha = rz / torch.dot(p, ap).clamp_min(1e-30)
@@ -139,7 +171,7 @@ def _pcg_step(setup: PCGSetup, x, r, p, rz):
     return x, r, z + beta * p, rz_new
 
 
-def _pcg_loop(setup: PCGSetup, b: torch.Tensor, tol: float,
+def _pcg_loop(setup: Preconditioned, b: torch.Tensor, tol: float,
               max_iters: int):
     """The eager loop: the host reads ‖r‖ every iteration."""
     x, r, p, rz, bnorm = _pcg_start(setup, b)
@@ -165,13 +197,14 @@ def _pcg_active(r, bnorm, it, tol, max_iters) -> torch.Tensor:
     return (it < max_iters) & (torch.linalg.norm(r) / bnorm > tol)
 
 
-def _pcg_chunk(setup: PCGSetup, x, r, p, rz, it, bnorm, tol, max_iters):
-    """``CHUNK`` iterations of the while loop with its condition on the
+def _pcg_chunk(setup: Preconditioned, steps: int, x, r, p, rz, it, bnorm,
+               tol, max_iters):
+    """``steps`` iterations of the while loop with its condition on the
     device: each computes the step and keeps it only where the condition
     holds, so a chunk that runs past the end repeats masked steps and
     changes nothing. Returns the carry, ``it``, and the condition for the
     next iteration."""
-    for _ in range(CHUNK):
+    for _ in range(steps):
         act = _pcg_active(r, bnorm, it, tol, max_iters)
         step = _pcg_step(setup, x, r, p, rz)
         x, r, p, rz = (torch.where(act, new, old)
@@ -180,22 +213,23 @@ def _pcg_chunk(setup: PCGSetup, x, r, p, rz, it, bnorm, tol, max_iters):
     return x, r, p, rz, it, _pcg_active(r, bnorm, it, tol, max_iters)
 
 
-def _pcg_chunked(setup: PCGSetup, b: torch.Tensor, tol: float,
+def _pcg_chunked(setup: Preconditioned, b: torch.Tensor, tol: float,
                  max_iters: int):
-    """The loop in chunks of ``CHUNK`` iterations, each one captured graph
-    on the card (``runtime/graphs.py``; eager on the CPU); the host reads
-    one flag per chunk. ``tol`` and ``max_iters`` are device scalars, so
-    changing them replays the same graph. The iterations and the result
-    are those of :func:`_pcg_loop`."""
+    """The loop in chunks of ``CHUNK`` iterations, or the set-up's own
+    ``chunk``, each one captured graph on the card (``runtime/graphs.py``;
+    eager on the CPU); the host reads one flag per chunk. ``tol`` and
+    ``max_iters`` are device scalars, so changing them replays the same
+    graph. The iterations and the result are those of :func:`_pcg_loop`."""
     x, r, p, rz, bnorm = _pcg_start(setup, b)
     it = torch.zeros((), dtype=torch.int64, device=b.device)
     limits = (torch.tensor(tol, dtype=torch.float32, device=b.device),
               torch.tensor(max_iters, dtype=torch.int64, device=b.device))
-    chunk = functools.partial(_pcg_chunk, setup)
+    steps = getattr(setup, "chunk", CHUNK)
+    chunk = functools.partial(_pcg_chunk, setup, steps)
     go = True
     while go:
         with profiling.span("bsm.pcg.chunk"):
-            x, r, p, rz, it, act = graphs.run(setup, ("pcg", CHUNK), chunk,
+            x, r, p, rz, it, act = graphs.run(setup, ("pcg", steps), chunk,
                                               x, r, p, rz, it, bnorm,
                                               *limits)
         go = _read(act, bool)
@@ -203,11 +237,12 @@ def _pcg_chunked(setup: PCGSetup, b: torch.Tensor, tol: float,
 
 
 def pcg_solve(a: CSR, b, *, tol: float = 1e-6, max_iters: int = 1000,
-              setup: Optional[PCGSetup] = None
+              setup: Optional[Preconditioned] = None
               ) -> Tuple[torch.Tensor, int, float]:
-    """Solve ``A x = b`` (SPD, ``b`` a vector) by IC(0)-preconditioned CG
-    on ``a``'s device. Returns (x, iterations, final relative residual).
-    Pass a prebuilt ``setup`` to amortise the symbolic work across
+    """Solve ``A x = b`` (SPD, ``b`` a vector) by preconditioned CG on
+    ``a``'s device. Returns (x, iterations, final relative residual).
+    ``setup`` defaults to IC(0) (:meth:`PCGSetup.build`); pass a prebuilt
+    one (IC(0), or a ``MultigridSetup``) to amortise the set-up across
     solves."""
     if setup is None:
         setup = PCGSetup.build(a)

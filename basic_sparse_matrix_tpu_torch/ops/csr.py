@@ -392,6 +392,21 @@ class CSR:
             rows[keep] - f.rows, indices[keep] - f.cols, values[keep],
             sum_duplicates=False, drop_zeros=False, device=self.device)
 
+    def triangle(self, *, lower: bool, strict: bool = False) -> "CSR":
+        """The lower (``lower``) or upper triangle: the entries with column
+        ≤ row (≥ row), without the diagonal when ``strict``. Rows keep
+        their storage order."""
+        indptr, indices, values = self.numpy()
+        rows = self._host_rows()
+        if lower:
+            keep = indices < rows if strict else indices <= rows
+        else:
+            keep = indices > rows if strict else indices >= rows
+        ptr = np.zeros(self.rows + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows[keep], minlength=self.rows), out=ptr[1:])
+        return CSR.from_host(ptr, indices[keep], values[keep], self.dims,
+                             device=self.device)
+
     def add_padding(self, padded_size: DimLike, at: DimLike) -> "CSR":
         """Embed into a larger zero matrix at offset ``at``."""
         p, off = MatDim.of(padded_size), MatDim.of(at)
