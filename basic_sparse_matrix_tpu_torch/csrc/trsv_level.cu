@@ -54,17 +54,50 @@
 // scattered 4-byte reads a level that would each move a 32-byte sector
 // from L2, read shared memory; each result is written there and to y.
 //
+// The dataflow chain (trsv_chain). A launch a wide level costs its 1.1-1.3
+// us however little the level holds, and a sweep of a 104^3 grid in natural
+// order is ~710 wide levels one after the other. A chain takes a run of
+// consecutive wide levels in one launch of blocks that the card holds all
+// at once, with no barrier between levels: in level order every entry of a
+// row points to an earlier position, so a row waits only on its own
+// dependencies. Each warp takes warp-units (32 / g rows of one level, g the
+// team trsv_wide would give the level) in increasing order, w, w + W, ...
+// of the chain's units; a row loads its columns, values and reciprocal
+// diagonal first, then reads each dependency before the chain from y
+// (final once the grid before has finished) and polls each one inside the
+// chain in a 64-bit word that holds its value and the launch's epoch,
+// written once by its row with the value. The launch is cooperative, on no
+// more blocks than the card holds at once, so CUDA runs every block of it
+// together; since every warp is resident and takes its units in order, the
+// earliest unfinished unit always runs and finds its dependencies done:
+// the chain cannot deadlock, whatever order the blocks are scheduled in.
+// The epoch (one word per schedule, read after the grid before has
+// finished) is advanced by the last block of the launch to finish, so a
+// word of an earlier launch never reads as ready and nothing has to be
+// cleared between launches or graph replays. A row's arithmetic is
+// trsv_wide's for its level (the same team, the same lane sums and
+// butterfly), so the chain's results equal the level-by-level launches'
+// bit for bit. What bounds it on the H100 (measured, PERF.md, K7's chain):
+// the trip through L2 from a row's word to the polls of the rows that wait
+// on it, about 0.73 us a level at the least and 1.06 us on the ~1,560-row
+// levels of a 104^3 sweep. The plan gives a chain warps for about four
+// levels of its rows at once: more only poll for rows far ahead and slow
+// the rest; pausing between polls (__nanosleep) was slower still.
+//
 // Shapes: y is (Bt, n, k) float32, contiguous, in level order. The batch
 // is on blockIdx.y (each system's values at vstride * bt and reciprocal
 // diagonals at dstride * bt; 0 strides share one set) and the right-hand
 // side's columns on blockIdx.z, each column an independent solve. The
 // launcher walks a host plan of (first level, end level, blocks) rows:
 // blocks 0 is a narrow run (one block per system and column), blocks > 0
-// one wide level on that many blocks. Launches go on the caller's stream;
-// nothing is allocated; the function returns the first CUDA error.
+// one wide level on that many blocks, blocks < 0 a dataflow chain on at
+// most -blocks blocks (one system and one column only). Launches go on the
+// caller's stream; nothing is allocated; the function returns the first
+// CUDA error.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -80,6 +113,12 @@ constexpr int Y_CACHE = 32768;
 // A run stages a level of at least this many entries; a smaller one is
 // read where it lies (its few loads cost less than waiting for a copy).
 constexpr int STAGE_MIN = 512;
+// A chain's blocks; a row of a chain's level has a team of at most a warp.
+constexpr int CHAIN_THREADS = 256;
+constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
+// Rounds of polls a chain's row makes before it traps: a chain that cannot
+// progress (it never should) ends in a launch error and not in a hang.
+constexpr int CHAIN_SPIN_LIMIT = 1 << 25;
 
 // A run's shared memory: the unknowns (CACHED), two staging buffers, each
 // cols and vals (ENTRIES each, 16-byte aligned), ptr (rows + 1), inv and,
@@ -140,6 +179,29 @@ __device__ __forceinline__ int team_size(int nr, int ne, int threads) {
   const int per_row = max(threads / nr, 1);
   const int fit = 1 << (31 - __clz(per_row));
   return min(want, fit);
+}
+
+// The team trsv_wide gives a row of a level of nr rows and ne entries on
+// the plan's blocks (models/sparse_triangular.py::wide_blocks gives every
+// row a team, so team_size's fit never binds there).
+__device__ __forceinline__ int wide_team(int nr, int ne) {
+  const int avg = min((ne + nr - 1) / nr, WIDE_THREADS);
+  return avg <= 1 ? 1 : 1 << (32 - __clz(avg - 1));
+}
+
+// A 64-bit word read from or written to L2, where every SM sees it.
+__device__ __forceinline__ unsigned long long load_gpu(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_gpu(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" :: "l"(p), "l"(v)
+               : "memory");
 }
 
 // Rows [r0, r0 + nr) of one level for one system and one column: row i's
@@ -370,6 +432,170 @@ trsv_wide(float* y, const float* __restrict__ vals,
                    per_block * gridDim.x, g, part);
 }
 
+// A warp-unit of a chain as one lane sees it: its row i (-1: none), the
+// level's team g, the lane's first entry e and the row's end e1, and what
+// the row reads first (four entries, its reciprocal diagonal).
+struct ChainUnit {
+  int i, g, e, e1;
+  int c[4];
+  float v[4];
+  float inv;
+};
+
+// A dataflow chain: the wide levels [lv0, lv1) of one system and one
+// column. units[lv] is the first warp-unit of level lv (32 / g of its rows
+// a unit, g its team); ready[i] holds row i's value and epoch once the row
+// is done; state[0] is the epoch of the last launch on these words and
+// state[1] counts the blocks of this one that have finished. Launched
+// cooperatively, on no more blocks than the card holds at once. A warp
+// works in three stages on three units at once: it finds the rows of the
+// unit two ahead and loads their row pointers, loads the next unit's first
+// entries, and solves the current one, so that only its waits on
+// dependencies lie between one unit and the next.
+__global__ void __launch_bounds__(CHAIN_THREADS)
+trsv_chain(float* y, const float* __restrict__ vals,
+           const float* __restrict__ inv_diag, const int* __restrict__ cols,
+           const int* __restrict__ eptr, const int2* __restrict__ levels,
+           const int* __restrict__ units, unsigned long long* ready,
+           unsigned* state, int lv0, int lv1) {
+  let_next_grid_launch();
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * CHAIN_WARPS;
+  const int r0 = __ldg(levels + lv0).x;  // rows before it are final in y
+  const int u1 = __ldg(units + lv1);
+  int lv = lv0;
+  int2 a = __ldg(levels + lv), b = __ldg(levels + lv + 1);
+  int ua = __ldg(units + lv), ub = __ldg(units + lv + 1);
+  // The rows of unit u (units are taken in increasing order, so the walk
+  // over the levels only moves forward) and their row pointers.
+  auto locate = [&](int u, ChainUnit& x) {
+    x.i = -1;
+    x.g = 1;
+    x.e = x.e1 = 0;
+    if (u >= u1) return;
+    while (u >= ub) {
+      ++lv;
+      a = b;
+      b = __ldg(levels + lv + 1);
+      ua = ub;
+      ub = __ldg(units + lv + 1);
+    }
+    x.g = wide_team(b.x - a.x, b.y - a.y);
+    const int i = a.x + (u - ua) * (32 / x.g) + lane / x.g;
+    if (i < b.x) {
+      x.i = i;
+      x.e = eptr[i] + (lane & (x.g - 1));
+      x.e1 = eptr[i + 1];
+    }
+  };
+  // The lane's first entries (lane-strided, four a lane) and the row's
+  // reciprocal diagonal: none of them depends on an unknown.
+  auto fetch = [&](ChainUnit& x) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (x.e + j * x.g < x.e1) {
+        x.c[j] = cols[x.e + j * x.g];
+        x.v[j] = vals[x.e + j * x.g];
+      }
+    x.inv = x.i >= 0 ? inv_diag[x.i] : 0.f;
+  };
+  const int first = ua + blockIdx.x * CHAIN_WARPS + (threadIdx.x >> 5);
+  ChainUnit cur, nxt;
+  locate(first, cur);
+  fetch(cur);
+  locate(first + stride, nxt);
+  wait_for_prior_grid();
+  const unsigned epoch = *static_cast<volatile unsigned*>(state) + 1;
+  for (int u = first; u < u1; u += stride) {
+    ChainUnit after;
+    locate(u + 2 * stride, after);
+    fetch(nxt);
+    const int g = cur.g;
+    const bool lead = cur.i >= 0 && (lane & (g - 1)) == 0;
+    const float rhs = lead ? y[cur.i] : 0.f;
+    float s = 0.f;
+    for (int e = cur.e;;) {
+      float x[4];
+      unsigned pend = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j * g < cur.e1) {
+          if (cur.c[j] < r0)
+            x[j] = y[cur.c[j]];
+          else
+            pend |= 1u << j;
+        }
+      for (int spins = 0; pend; ++spins) {
+        unsigned long long w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = (pend >> j & 1) ? load_gpu(ready + cur.c[j]) : 0ull;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if ((pend >> j & 1)
+              && static_cast<unsigned>(w[j] >> 32) == epoch) {
+            x[j] = __uint_as_float(static_cast<unsigned>(w[j]));
+            pend &= ~(1u << j);
+          }
+        if (pend && spins == CHAIN_SPIN_LIMIT) __trap();
+      }
+      // trsv_wide's lane sum: storage order, one fma an entry.
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j * g < cur.e1) s = fmaf(cur.v[j], x[j], s);
+      e += 4 * g;
+      if (e >= cur.e1) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j * g < cur.e1) {
+          cur.c[j] = cols[e + j * g];
+          cur.v[j] = vals[e + j * g];
+        }
+    }
+    for (int o = g >> 1; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lead) {
+      const float r = (rhs - s) * cur.inv;
+      y[cur.i] = r;
+      store_gpu(ready + cur.i,
+                static_cast<unsigned long long>(epoch) << 32
+                    | __float_as_uint(r));
+    }
+    cur = nxt;
+    nxt = after;
+  }
+  // The last block to finish advances the epoch: every block has read it
+  // by then, and the next launch on these words reads it only after this
+  // grid has finished.
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(state + 1, 1u) == gridDim.x - 1) {
+    atomicExch(state + 1, 0u);
+    atomicAdd(state, 1u);
+  }
+}
+
+// The blocks of trsv_chain the current device holds at once.
+cudaError_t chain_capacity(int* out) {
+  static int known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && known[dev] > 0) {
+    *out = known[dev];
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trsv_chain,
+                                                      CHAIN_THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < 64) known[dev] = per_sm * sms;
+  *out = per_sm * sms;
+  return cudaSuccess;
+}
+
 template <bool CACHED>
 cudaError_t prepare() {
   // A run's shared memory exceeds the 48 KB default: opt in once per
@@ -381,20 +607,23 @@ cudaError_t prepare() {
 }
 
 // A launch on `s` that may start while the kernel before it runs (it waits
-// for that kernel where it reads y).
+// for that kernel where it reads y). A `resident` launch is cooperative:
+// CUDA runs all of its blocks at once or refuses the launch.
 template <typename... P, typename... A>
-cudaError_t launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
-                   cudaStream_t s, A... args) {
+cudaError_t launch(bool resident, void (*kernel)(P...), dim3 grid,
+                   int threads, size_t smem, cudaStream_t s, A... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = resident ? 2 : 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<P>(args)...);
 }
 
@@ -404,13 +633,16 @@ cudaError_t launch(void (*kernel)(P...), dim3 grid, int threads, size_t smem,
 // inv_diag (n) per system at strides vstride and dstride (0: shared).
 // cols: (nnz,) int32 level-order columns; eptr: (n + 1,) int32 entry
 // pointer of each level-order row; levels: (n_levels + 1, 2) int32 row and
-// entry start of each level. plan: host (launches, 3) int32 rows of (first
-// level, end level, blocks), blocks 0 a narrow run.
+// entry start of each level; units: (n_levels + 1,) int32 first warp-unit
+// of each level (chains only); ready: (n + 1,) 64-bit words, zero when
+// made, that the schedule's chains keep (row words, then the epoch and a
+// block count). plan: host (launches, 3) int32 rows of (first level, end
+// level, blocks), blocks 0 a narrow run, blocks < 0 a chain.
 extern "C" int bsm_trsv(float* y, const float* vals, const float* inv_diag,
                         const int* cols, const int* eptr, const int* levels,
-                        const int* plan, int launches, int n, int k, int bt,
-                        long long nnz, long long vstride, long long dstride,
-                        void* stream) {
+                        const int* units, void* ready, const int* plan,
+                        int launches, int n, int k, int bt, long long nnz,
+                        long long vstride, long long dstride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || k <= 0 || bt <= 0 || launches <= 0) return 0;
   if (k > 65535 || bt > 65535)
@@ -423,17 +655,27 @@ extern "C" int bsm_trsv(float* y, const float* vals, const float* inv_diag,
     const int lv0 = plan[3 * i], lv1 = plan[3 * i + 1];
     const int blocks = plan[3 * i + 2];
     cudaError_t err;
-    if (blocks == 0 && cached) {
-      err = launch(trsv_run<true>, dim3(1, bt, k), RUN_THREADS,
+    if (blocks < 0) {
+      if (bt != 1 || k != 1) return static_cast<int>(cudaErrorInvalidValue);
+      int cap = 0;
+      err = chain_capacity(&cap);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      auto* words = static_cast<unsigned long long*>(ready);
+      err = launch(true, trsv_chain, dim3(std::min(-blocks, cap)),
+                   CHAIN_THREADS, 0, s, y, vals, inv_diag, cols, eptr, lv,
+                   units, words, reinterpret_cast<unsigned*>(words + n), lv0,
+                   lv1);
+    } else if (blocks == 0 && cached) {
+      err = launch(false, trsv_run<true>, dim3(1, bt, k), RUN_THREADS,
                    Layout<true>::SMEM, s, y, vals, inv_diag, cols, eptr, lv,
                    lv0, lv1, n, k, nnz, vstride, dstride);
     } else if (blocks == 0) {
-      err = launch(trsv_run<false>, dim3(1, bt, k), RUN_THREADS,
+      err = launch(false, trsv_run<false>, dim3(1, bt, k), RUN_THREADS,
                    Layout<false>::SMEM, s, y, vals, inv_diag, cols, eptr, lv,
                    lv0, lv1, n, k, nnz, vstride, dstride);
     } else {
-      err = launch(trsv_wide, dim3(blocks, bt, k), WIDE_THREADS, 0, s, y,
-                   vals, inv_diag, cols, eptr, lv, lv0, n, k, vstride,
+      err = launch(false, trsv_wide, dim3(blocks, bt, k), WIDE_THREADS, 0, s,
+                   y, vals, inv_diag, cols, eptr, lv, lv0, n, k, vstride,
                    dstride);
     }
     if (err == cudaSuccess) err = cudaGetLastError();
@@ -444,8 +686,9 @@ extern "C" int bsm_trsv(float* y, const float* vals, const float* inv_diag,
 
 // The kernel's constants, for the wrapper's plan and the probes: run
 // threads, wide threads, entries and rows a staged level may have, the
-// largest system a run holds in shared memory, and the entries a staged
-// level may have then.
+// largest system a run holds in shared memory, the entries a staged level
+// may have then, a chain's threads a block, and the chain's blocks the
+// current device holds at once.
 extern "C" int bsm_trsv_info(int* out) {
   out[0] = RUN_THREADS;
   out[1] = WIDE_THREADS;
@@ -453,5 +696,6 @@ extern "C" int bsm_trsv_info(int* out) {
   out[3] = STAGE_ROWS;
   out[4] = Y_CACHE;
   out[5] = Layout<true>::ENTRIES;
-  return 0;
+  out[6] = CHAIN_THREADS;
+  return static_cast<int>(chain_capacity(out + 7));
 }

@@ -29,15 +29,19 @@ same four operations for the whole batch. :func:`factor_pattern` and
 CSR order, so factor → solve needs no host round trip per system.
 
 On the card the level loop is the hand-written kernel K7
-(``csrc/trsv_level.cu``): one launch does a wide level on many blocks, or a
+(``csrc/trsv_level.cu``): one launch does a wide level on many blocks, a
 run of consecutive narrow levels on one block with a barrier between
-levels (:func:`launch_plan`, built with the schedule), every launch
-overlapping the one before (programmatic dependent launch). It runs inside one
+levels, or a dataflow chain of consecutive wide levels on blocks that the
+card holds at once, each row waiting on its own dependencies
+(:func:`launch_plan`, built with the schedule), every launch overlapping
+the one before (programmatic dependent launch). It runs inside one
 captured CUDA graph per (schedule, operand shapes), replayed on every later
 solve (``runtime/graphs.py``: the counterpart of the JAX package's
 ``jax.jit``). On the CPU the four-operation loop runs as it is: it is K7's
 plain version. On the card each solve counts ``trsv.launches`` (K7's
-launches) and ``trsv.levels`` in the recorder (``runtime/profiling.py``).
+launches), ``trsv.levels``, ``trsv.dataflow_launches`` (its chains) and
+``trsv.dataflow_levels`` (their levels) in the recorder
+(``runtime/profiling.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +68,21 @@ NARROW_ENTRIES = 12288
 # Threads of a wide level's block (csrc/trsv_level.cu's WIDE_THREADS): the
 # plan gives a wide level blocks enough for a team of threads a row.
 WIDE_THREADS = 256
+# A dataflow chain (csrc/trsv_level.cu's trsv_chain) takes a run of at least
+# DATAFLOW_MIN_LEVELS consecutive wide levels whose rows get a team of at
+# most DATAFLOW_TEAM threads (a warp) in one launch, in place of a launch a
+# level: shorter runs lose to a launch a level (probes/trsv_probe.py
+# --dataflow; PERF.md, K7's chain). A solve of several systems or columns
+# runs the chain's levels as wide launches.
+DATAFLOW_MIN_LEVELS = 4
+DATAFLOW_TEAM = 32
+# A chain runs on warps enough for its units of DATAFLOW_LOOKAHEAD mean
+# levels at once (at most what the card holds): fewer leave the next
+# levels' rows unclaimed, more only poll for rows far ahead and slow the
+# others (probes/trsv_probe.py --dataflow; PERF.md, K7's chain).
+DATAFLOW_LOOKAHEAD = 4
+# Warps of a chain's block (csrc/trsv_level.cu's CHAIN_THREADS / 32).
+CHAIN_WARPS = 8
 # Launches of K7 in this process (a plain counter that a caller may reset).
 LAUNCHES = 0
 
@@ -83,8 +102,13 @@ class TriangularSchedule:
 
     K7's tables: ``cols32`` (``cols`` as int32), ``row_ent`` (each
     level-order row's first entry, and the end), ``levels`` (each level's
-    first row and first entry, and the ends) on the device, and ``plan``,
-    K7's launches on the host (:func:`launch_plan`)."""
+    first row and first entry, and the ends), ``units`` (each level's first
+    warp-unit of a chain, :func:`warp_units`) and ``ready`` (the words a
+    chain keeps: a value and an epoch a row, then the epoch of the last
+    chain and a block count; zero when made) on the device, and ``plan``,
+    K7's launches on the host (:func:`launch_plan`). Chains run one at a
+    time: one holds the whole card, and two on one schedule would share
+    ``ready``."""
 
     rows: torch.Tensor      # (n,) int64, rows in level order
     inv_diag: torch.Tensor  # (n,) float32
@@ -96,6 +120,8 @@ class TriangularSchedule:
     cols32: torch.Tensor    # (nnz_off,) int32, cols for K7
     row_ent: torch.Tensor   # (n + 1,) int32, entries of level-order rows
     levels: torch.Tensor    # (n_levels + 1, 2) int32, row and entry starts
+    units: torch.Tensor     # (n_levels + 1,) int32, warp-unit starts
+    ready: torch.Tensor     # (n + 1,) int64, a chain's words
     plan: np.ndarray        # (launches, 3) int32 on the host, launch_plan
     row_ptr: Tuple[int, ...]
     ent_ptr: Tuple[int, ...]
@@ -110,7 +136,7 @@ class TriangularSchedule:
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (
             self.rows, self.inv_diag, self.cols, self.vals, self.seg,
-            self.cols32, self.row_ent, self.levels))
+            self.cols32, self.row_ent, self.levels, self.units, self.ready))
 
 
 def _mirror(n: int, indptr, indices, values):
@@ -167,6 +193,7 @@ def build_schedule(l: CSR, *, lower: bool = True) -> TriangularSchedule:
     row_ent = np.concatenate([[0], np.cumsum(np.bincount(
         slot_of[orow], minlength=n))])
     dev = l.device
+    units = np.concatenate([[0], np.cumsum(warp_units(counts, ecount))])
     return TriangularSchedule(
         rows=to_tensor(order.astype(np.int64), dev),
         inv_diag=to_tensor((1.0 / dval[order]).astype(np.float32), dev),
@@ -179,6 +206,8 @@ def build_schedule(l: CSR, *, lower: bool = True) -> TriangularSchedule:
         row_ent=to_tensor(row_ent.astype(np.int32), dev),
         levels=to_tensor(np.stack([row_ptr, ent_ptr], 1).astype(np.int32),
                          dev),
+        units=to_tensor(units.astype(np.int32), dev),
+        ready=torch.zeros(n + 1, dtype=torch.int64, device=dev),
         plan=launch_plan(row_ptr, ent_ptr),
         row_ptr=tuple(int(v) for v in row_ptr),
         ent_ptr=tuple(int(v) for v in ent_ptr),
@@ -191,35 +220,102 @@ def launch_plan(row_ptr, ent_ptr) -> np.ndarray:
     """K7's launches for levels with these row and entry pointers: (first
     level, end level, blocks) int32 rows in level order, covering every
     level once. A run of consecutive narrow levels (``NARROW_ROWS``,
-    ``NARROW_ENTRIES``) is one launch on one block (blocks 0); every other
-    level is a launch of its own on :func:`wide_blocks` blocks."""
+    ``NARROW_ENTRIES``) is one launch on one block (blocks 0); a run of at
+    least ``DATAFLOW_MIN_LEVELS`` consecutive wide levels whose rows take a
+    team of at most ``DATAFLOW_TEAM`` is one dataflow chain (blocks < 0: on
+    at most -blocks blocks, :func:`chain_blocks`); every other level is a
+    launch of its own on :func:`wide_blocks` blocks."""
     rows = np.diff(np.asarray(row_ptr, dtype=np.int64))
     ents = np.diff(np.asarray(ent_ptr, dtype=np.int64))
-    return plan_of(rows, ents,
-                   (rows <= NARROW_ROWS) & (ents <= NARROW_ENTRIES))
+    narrow = (rows <= NARROW_ROWS) & (ents <= NARROW_ENTRIES)
+    return plan_of(rows, ents, narrow, chained(rows, ents, narrow))
 
 
-def plan_of(rows: np.ndarray, ents: np.ndarray,
+def chained(rows: np.ndarray, ents: np.ndarray,
             narrow: np.ndarray) -> np.ndarray:
+    """Which levels a dataflow chain takes: the maximal runs of at least
+    ``DATAFLOW_MIN_LEVELS`` wide levels whose rows get a team of at most
+    ``DATAFLOW_TEAM`` threads."""
+    fit = ~narrow & (wide_team(rows, ents) <= DATAFLOW_TEAM)
+    edges = np.diff(np.concatenate([[0], fit.astype(np.int8), [0]]))
+    starts, ends = np.nonzero(edges == 1)[0], np.nonzero(edges == -1)[0]
+    out = np.zeros_like(fit)
+    for a, b in zip(starts, ends):
+        if b - a >= DATAFLOW_MIN_LEVELS:
+            out[a:b] = True
+    return out
+
+
+def plan_of(rows: np.ndarray, ents: np.ndarray, narrow: np.ndarray,
+            chain: Optional[np.ndarray] = None) -> np.ndarray:
     """:func:`launch_plan` for levels of ``rows`` rows and ``ents``
-    entries, the ``narrow`` ones in runs."""
-    after_narrow = np.zeros_like(narrow)
-    after_narrow[1:] = narrow[:-1]
-    first = ~narrow | ~after_narrow
+    entries, the ``narrow`` ones in runs and the ``chain`` ones (wide, in
+    maximal runs; none if None) in dataflow chains."""
+    kind = np.where(narrow, 0, 1)
+    if chain is not None:
+        kind = np.where(chain, 2, kind)
+    first = np.ones(rows.size, dtype=bool)
+    first[1:] = (kind[1:] != kind[:-1]) | (kind[1:] == 1)
     starts = np.nonzero(first)[0]
     ends = np.concatenate([starts[1:], [rows.size]])[:starts.size]
     blocks = np.where(narrow, 0, wide_blocks(rows, ents))[starts]
+    chains = kind[starts] == 2
+    if chains.any():
+        units = np.concatenate([[0], np.cumsum(warp_units(rows, ents))])
+        blocks[chains] = -chain_blocks(
+            units[ends[chains]] - units[starts[chains]],
+            ends[chains] - starts[chains])
     return np.ascontiguousarray(
         np.stack([starts, ends, blocks], 1).astype(np.int32))
 
 
+def wide_team(rows: np.ndarray, ents: np.ndarray) -> np.ndarray:
+    """Threads a row of a level of ``rows`` rows and ``ents`` entries gets
+    launched wide: the least power of two at or above the mean row length,
+    at most a block."""
+    mean = np.minimum(-(-ents // np.maximum(rows, 1)), WIDE_THREADS)
+    return 1 << np.ceil(np.log2(np.maximum(mean, 1))).astype(np.int64)
+
+
 def wide_blocks(rows: np.ndarray, ents: np.ndarray) -> np.ndarray:
     """Blocks of ``WIDE_THREADS`` for levels of ``rows`` rows and ``ents``
-    entries launched wide: a team a row, of the least power of two at or
-    above the mean row length, at most a block."""
-    mean = np.minimum(-(-ents // np.maximum(rows, 1)), WIDE_THREADS)
-    team = 1 << np.ceil(np.log2(np.maximum(mean, 1))).astype(np.int64)
-    return -(-rows * team // WIDE_THREADS)
+    entries launched wide: a team a row (:func:`wide_team`)."""
+    return -(-rows * wide_team(rows, ents) // WIDE_THREADS)
+
+
+def warp_units(rows: np.ndarray, ents: np.ndarray) -> np.ndarray:
+    """A chain's warp-units in each level: its rows, 32 / team of them a
+    warp (a team wider than a warp counted as a warp's)."""
+    per_warp = np.maximum(32 // wide_team(rows, ents), 1)
+    return -(-rows // per_warp)
+
+
+def chain_blocks(units, levels) -> np.ndarray:
+    """Blocks of ``CHAIN_WARPS`` warps a chain of ``units`` warp-units over
+    ``levels`` levels asks for: a warp a unit of ``DATAFLOW_LOOKAHEAD``
+    mean levels (the kernel takes at most what the card holds at once;
+    each warp walks every so many units)."""
+    units, levels = np.asarray(units), np.asarray(levels)
+    want = -(-DATAFLOW_LOOKAHEAD * units // np.maximum(levels, 1))
+    return np.maximum(-(-np.minimum(want, units) // CHAIN_WARPS), 1)
+
+
+def level_by_level(sched: TriangularSchedule) -> np.ndarray:
+    """The schedule's plan with each dataflow chain replaced by a wide
+    launch a level: what K7 runs for several systems or columns at once."""
+    plan = sched.plan
+    if not (plan[:, 2] < 0).any():
+        return plan
+    rows, ents = np.diff(sched.row_ptr), np.diff(sched.ent_ptr)
+    parts = []
+    for lv0, lv1, blocks in plan:
+        if blocks >= 0:
+            parts.append(np.array([[lv0, lv1, blocks]]))
+        else:
+            lv = np.arange(lv0, lv1)
+            parts.append(np.stack([lv, lv + 1, wide_blocks(rows[lv],
+                                                           ents[lv])], 1))
+    return np.ascontiguousarray(np.concatenate(parts).astype(np.int32))
 
 
 def schedule_values(sched: TriangularSchedule, l_values: torch.Tensor
@@ -312,8 +408,10 @@ def _levels_cuda(sched: TriangularSchedule, y: torch.Tensor,
                  vals: torch.Tensor, inv_diag: torch.Tensor) -> None:
     """K7 (``csrc/trsv_level.cu``): the level loop on CUDA ``y`` (n[, k]),
     or (Bt, n[, k]) with ``vals`` (Bt, nnz_off) and ``inv_diag`` (Bt, n),
-    in place, as the schedule's plan of launches on the current stream.
-    Counts ``trsv.launches`` and ``trsv.levels`` in the recorder."""
+    in place, as the schedule's plan of launches on the current stream
+    (:func:`level_by_level` for several systems or columns). Counts
+    ``trsv.launches``, ``trsv.levels``, ``trsv.dataflow_launches`` and
+    ``trsv.dataflow_levels`` in the recorder."""
     global LAUNCHES
     from ..runtime import cuda_kernels
 
@@ -332,19 +430,24 @@ def _levels_cuda(sched: TriangularSchedule, y: torch.Tensor,
         raise ValueError(f"trsv: {sched.ent_ptr[-1]} entries exceed K7's "
                          f"int32 tables")
     lib = cuda_kernels.load()
-    plan = sched.plan
+    plan = sched.plan if bt * k == 1 else level_by_level(sched)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         status = lib.bsm_trsv(
             y.data_ptr(), vals.data_ptr(), inv_diag.data_ptr(),
             sched.cols32.data_ptr(), sched.row_ent.data_ptr(),
-            sched.levels.data_ptr(), plan.ctypes.data, len(plan), sched.n,
+            sched.levels.data_ptr(), sched.units.data_ptr(),
+            sched.ready.data_ptr(), plan.ctypes.data, len(plan), sched.n,
             k, bt, sched.ent_ptr[-1], vals.shape[-1] if batched else 0,
             sched.n if batched else 0, stream)
     LAUNCHES += len(plan)
     cuda_kernels.check_launch(lib, status, "trsv")
+    chains = plan[plan[:, 2] < 0]
     profiling.count("trsv.launches", len(plan))
     profiling.count("trsv.levels", sched.n_levels)
+    profiling.count("trsv.dataflow_launches", len(chains))
+    profiling.count("trsv.dataflow_levels",
+                    int((chains[:, 1] - chains[:, 0]).sum()))
 
 
 def solve_triangular_sparse(l: CSR, b,

@@ -14,7 +14,8 @@ not by a level alone (a run fragmented by wide levels pays its start-up
 again each time).
 
 :func:`hpcg_rows` times K7 where the benchmark's cells run it: the median
-level of IC(0) at HPCG's 104³ grid (a wide launch) and the longest narrow
+level of IC(0) at HPCG's 104³ grid (a wide launch), the dataflow chain of
+its forward solve (one launch for ~710 wide levels) and the longest narrow
 run of the nested-dissection supernodal factor at 32³, and each whole
 forward solve, beside the plain version captured the same way and the
 bound (every byte read or written once at 3.35 TB/s: the values, int32
@@ -23,10 +24,20 @@ diagonal, read and written unknown of each row). Device times are CUDA
 events around graph replays (median of ``ITERS``); a single level is
 captured ``REPEAT`` times in its graph and the time divided.
 
+``--dataflow`` times the dataflow chains (:func:`chain_rows`) of IC(0) at
+104³, of D+L and D+U on each of HPCG's multigrid grids (104³ to 13³) and
+of the 32³ nested-dissection factor against the same levels launched one a
+level, µs a level, with the two results compared bit for bit;
+(:func:`crossover`) the first m levels of a chain both ways, the
+measurement behind ``DATAFLOW_MIN_LEVELS``; and (:func:`lookahead_sweep`)
+a chain on more or fewer warps, the measurement behind
+``DATAFLOW_LOOKAHEAD``.
+
 Usage (a machine with a CUDA GPU and nvcc; ≈ 1 minute of host set-up at
 104³ and 32³):
     python -m basic_sparse_matrix_tpu_torch.probes.trsv_probe [--plans]
     python -m basic_sparse_matrix_tpu_torch.probes.trsv_probe --sweep-only
+    python -m basic_sparse_matrix_tpu_torch.probes.trsv_probe --dataflow
 Every line printed is one JSON object.
 """
 
@@ -255,6 +266,12 @@ def hpcg_rows(device, scheds=None) -> list:
         "104³ IC(0), median level", ic0, lv, lv + 1,
         graph_ms(k7(one, y), REPEAT),
         graph_ms(plain(sub_schedule(ic0, lv, lv + 1), y), REPEAT)))
+    lv0, lv1 = (int(v) for v in longest_chain(ic0)[:2])
+    rows.append(_row(
+        "104³ IC(0), forward chain", ic0, lv0, lv1,
+        graph_ms(k7(with_plan(ic0, [[lv0, lv1, chain_blocks(ic0, lv0,
+                                                             lv1)]]), y)),
+        graph_ms(plain(sub_schedule(ic0, lv0, lv1), y))))
     fwd = scheds["32³ ND factor"][0]
     runs = [p for p in fwd.plan if p[2] == 0]
     lv0, lv1, _ = max(runs, key=lambda p: p[1] - p[0])
@@ -304,6 +321,152 @@ def plan_sweep(device, scheds) -> list:
     return out
 
 
+# HPCG's multigrid grids (models/multigrid.py; portbench's hpcg-104-mg).
+MG_GRIDS = (104, 52, 26, 13)
+
+
+def mg_schedules(device) -> dict:
+    """The schedules of D+L and D+U of HPCG's operator on each multigrid
+    grid: the V-cycle's forward and backward sweeps."""
+    out = {}
+    for k in MG_GRIDS:
+        a = hpcg27(k, device)
+        out[f"{k}³ D+L, D+U"] = (
+            st.build_schedule(a.triangle(lower=True)),
+            st.build_schedule(a.triangle(lower=False), lower=False))
+    return out
+
+
+def longest_chain(sched):
+    """The plan row of the schedule's longest dataflow chain, or None."""
+    chains = [p for p in sched.plan if p[2] < 0]
+    return max(chains, key=lambda p: p[1] - p[0]) if chains else None
+
+
+def chain_blocks(sched, lv0: int, lv1: int, lookahead=None) -> int:
+    """The plan's blocks entry (negative) of a chain of levels [lv0, lv1),
+    with warps for ``lookahead`` mean levels (the plan's by default)."""
+    units = sched.units.cpu().numpy()
+    need, levels = units[lv1] - units[lv0], lv1 - lv0
+    if lookahead is None:
+        return -int(st.chain_blocks(need, levels))
+    return -max(1, -(-int(-(-lookahead * need // levels)) // st.CHAIN_WARPS))
+
+
+def each_level(sched):
+    """The schedule with every chain launched one level at a time."""
+    return with_plan(sched, st.level_by_level(sched))
+
+
+def chain_rows(device, scheds) -> list:
+    """Each schedule's dataflow chains against the same levels as wide
+    launches: the whole solve both ways, the chains alone both ways (µs a
+    chain level), and a seeded solve both ways compared bit for bit; where
+    every level's rows fit a chain, also the whole solve as one chain (the
+    narrow runs joined to it)."""
+    out = []
+    for name, pair in scheds.items():
+        for way, sched in zip(("forward", "backward"), pair):
+            plan = sched.plan
+            chains = plan[plan[:, 2] < 0]
+            row = {"metric": "trsv_chain", "case": f"{name}, {way}",
+                   "levels": sched.n_levels, "launches": len(plan),
+                   "chains": len(chains),
+                   "chain_levels": int((chains[:, 1] - chains[:, 0]).sum())}
+            if len(chains):
+                b = torch.randn(sched.n, generator=torch.Generator(
+                    device=device).manual_seed(5), device=device)
+                got, want = b.clone(), b.clone()
+                k7(sched, got)()
+                k7(each_level(sched), want)()
+                only = with_plan(sched, chains)
+                y = torch.ones(sched.n, device=device)
+                t_only = graph_ms(k7(only, y))
+                t_each = graph_ms(k7(each_level(only), y))
+                row.update(
+                    bit_equal=bool(torch.equal(got, want)),
+                    solve_ms=graph_ms(k7(sched, y)),
+                    solve_each_ms=graph_ms(k7(each_level(sched), y)),
+                    chain_ms=t_only, each_ms=t_each,
+                    chain_us_a_level=t_only * 1e3 / row["chain_levels"],
+                    each_us_a_level=t_each * 1e3 / row["chain_levels"])
+                if (st.wide_team(np.diff(sched.row_ptr), np.diff(
+                        sched.ent_ptr)) <= st.DATAFLOW_TEAM).all():
+                    # the narrow runs joined to the chain: every level one
+                    whole = with_plan(sched, [[0, sched.n_levels,
+                                               chain_blocks(sched, 0,
+                                                            sched.n_levels)]])
+                    one = b.clone()
+                    k7(whole, one)()
+                    row.update(one_chain_ms=graph_ms(k7(whole, y)),
+                               one_chain_bit_equal=bool(torch.equal(one,
+                                                                    want)))
+            print(json.dumps(row), flush=True)
+            out.append(row)
+    return out
+
+
+# Chain lengths of crossover.
+LENGTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def crossover(device, scheds) -> list:
+    """The first m levels of each forward solve's longest chain as one
+    chain and as m wide launches, device µs a level (``256 // m`` copies
+    captured in a graph): the least m at which the chain wins sets
+    ``DATAFLOW_MIN_LEVELS``."""
+    out = []
+    for name, pair in scheds.items():
+        sched = pair[0]
+        best = longest_chain(sched)
+        if best is None:
+            continue
+        lv0, lv1, _ = (int(v) for v in best)
+        y = torch.ones(sched.n, device=device)
+        for m in LENGTHS:
+            if m > lv1 - lv0:
+                break
+            chain = with_plan(sched, [[lv0, lv0 + m,
+                                       chain_blocks(sched, lv0, lv0 + m)]])
+            reps = max(1, 256 // m)
+            t_chain = graph_ms(k7(chain, y), reps) * 1e3 / m
+            t_each = graph_ms(k7(each_level(chain), y), reps) * 1e3 / m
+            row = {"metric": "trsv_chain_crossover", "case": name,
+                   "levels": m, "rows": sched.row_ptr[lv0 + m]
+                   - sched.row_ptr[lv0], "chain_us_a_level": t_chain,
+                   "each_us_a_level": t_each, "chain_wins": t_chain < t_each}
+            print(json.dumps(row), flush=True)
+            out.append(row)
+    return out
+
+
+# Lookaheads of lookahead_sweep, in mean levels of warp-units.
+LOOKAHEADS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
+
+
+def lookahead_sweep(device, scheds) -> list:
+    """Each forward solve's longest chain on warps enough for ``L`` mean
+    levels of its units (capped by what the card holds), device µs a
+    level: the measurement behind ``DATAFLOW_LOOKAHEAD``."""
+    out = []
+    for name, pair in scheds.items():
+        sched = pair[0]
+        best = longest_chain(sched)
+        if best is None:
+            continue
+        lv0, lv1, _ = (int(v) for v in best)
+        y = torch.ones(sched.n, device=device)
+        for look in LOOKAHEADS:
+            blocks = chain_blocks(sched, lv0, lv1, look)
+            t = graph_ms(k7(with_plan(sched, [[lv0, lv1, blocks]]), y))
+            row = {"metric": "trsv_chain_lookahead", "case": name,
+                   "lookahead": look, "blocks": -blocks,
+                   "chain_us_a_level": t * 1e3 / (lv1 - lv0)}
+            print(json.dumps(row), flush=True)
+            out.append(row)
+    return out
+
+
 def main(argv=None) -> None:
     from ..runtime import cuda_kernels
 
@@ -311,6 +474,8 @@ def main(argv=None) -> None:
     p.add_argument("--sweep-only", action="store_true")
     p.add_argument("--plans", action="store_true",
                    help="also time whole solves under candidate rules")
+    p.add_argument("--dataflow", action="store_true",
+                   help="only the dataflow chains and their crossover")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the K7 probe needs a CUDA device")
@@ -318,7 +483,15 @@ def main(argv=None) -> None:
     cuda_kernels.load()
     print(json.dumps({"device": torch.cuda.get_device_name(device),
                       "narrow_rows": st.NARROW_ROWS,
-                      "narrow_entries": st.NARROW_ENTRIES}), flush=True)
+                      "narrow_entries": st.NARROW_ENTRIES,
+                      "dataflow_min_levels": st.DATAFLOW_MIN_LEVELS}),
+          flush=True)
+    if args.dataflow:
+        scheds = {**hpcg_schedules(device), **mg_schedules(device)}
+        chain_rows(device, scheds)
+        crossover(device, scheds)
+        lookahead_sweep(device, scheds)
+        return
     sweep(device)
     if not args.sweep_only:
         scheds = hpcg_schedules(device)

@@ -68,10 +68,10 @@ _SIGNATURES = {
     "bsm_addback_rects": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ii, kk, vv, B, C, entries, rows, lanes, vec, stream
     "bsm_entry_fma": [_P] * 5 + [_LL, _I, _I, _I, _P],
-    # y, vals, inv_diag, cols, eptr, levels, plan (host), launches, n, k,
-    # bt, nnz, vstride, dstride, stream
-    "bsm_trsv": [_P] * 7 + [_I] * 4 + [_LL, _LL, _LL, _P],
-    # out[6]
+    # y, vals, inv_diag, cols, eptr, levels, units, ready, plan (host),
+    # launches, n, k, bt, nnz, vstride, dstride, stream
+    "bsm_trsv": [_P] * 9 + [_I] * 4 + [_LL, _LL, _LL, _P],
+    # out[8]
     "bsm_trsv_info": [_P],
 }
 

@@ -283,7 +283,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 25. K7 (``csrc/trsv_level.cu``, the triangular solve's level step; run
     after phase 18): its time at the median level of IC(0) of HPCG's
-    operator at 104³ (a wide launch) and on the longest narrow run of the
+    operator at 104³ (a wide launch), on the dataflow chain of that
+    solve's ~710 wide levels (one launch), on the longest narrow run of the
     32³ nested-dissection factor (one block), and both forward solves,
     each captured in a CUDA graph beside the plain version (four
     operations a level) and the bound; each solve within 1e-5·max|ref| of
@@ -1871,8 +1872,9 @@ def k7_phase(dev, launches: int) -> dict:
     """Phase 25: K7, the triangular solve's level step, against its plain
     version (four operations a level) and its bound where the benchmark
     runs it: the median level of IC(0) of HPCG's operator at 104³ (a wide
-    launch), the longest narrow run of its nested-dissection factor at 32³
-    (one block), and both forward solves, each inside a CUDA graph
+    launch), the dataflow chain of its forward solve (one launch), the
+    longest narrow run of its nested-dissection factor at 32³ (one block),
+    and both forward solves, each inside a CUDA graph
     (``probes/trsv_probe.py::hpcg_rows``, which also holds each solve to the
     plain version). ``launches`` is phase 6's count."""
     from basic_sparse_matrix_tpu_torch.probes import trsv_probe as probe
@@ -2935,9 +2937,9 @@ def fmt_ms(st: dict) -> str:
 
 
 # The ported kernels a captured program holds, by the names of their
-# __global__ functions: K7 (run, wide), K3, the add-back's rect entry, K2
-# (tile, sliced).
-KERNEL_NAMES = {"trsv_level": ("trsv_run", "trsv_wide"),
+# __global__ functions: K7 (run, wide, chain), K3, the add-back's rect
+# entry, K2 (tile, sliced).
+KERNEL_NAMES = {"trsv_level": ("trsv_run", "trsv_wide", "trsv_chain"),
                 "runs_read": ("runs_read_kernel",),
                 "addback_rects": ("addback_rects_kernel",),
                 "spmm_stream": ("stream_spmm_kernel", "stream_sliced_kernel")}

@@ -172,17 +172,47 @@ def test_launch_plan_covers_every_level_once(configs, monkeypatch, limits,
     plan = ps.plan
     assert plan[0, 0] == 0 and plan[-1, 1] == ps.n_levels
     assert np.array_equal(plan[1:, 0], plan[:-1, 1])
+    chain = pst.chained(rows, ents, narrow)
     for lv0, lv1, blocks in plan:
         assert lv1 > lv0
         if blocks == 0:
             assert narrow[lv0:lv1].all()
             assert (lv0 == 0 or not narrow[lv0 - 1]) \
                 and (lv1 == ps.n_levels or not narrow[lv1])
+        elif blocks < 0:   # a dataflow chain: a maximal run of wide levels
+            assert chain[lv0:lv1].all() and not narrow[lv0:lv1].any()
+            assert lv1 - lv0 >= pst.DATAFLOW_MIN_LEVELS
+            assert (lv0 == 0 or not chain[lv0 - 1]) \
+                and (lv1 == ps.n_levels or not chain[lv1])
         else:
-            assert lv1 == lv0 + 1 and not narrow[lv0]
+            assert lv1 == lv0 + 1 and not narrow[lv0] and not chain[lv0]
     if limits[0] < 256:
-        assert len(set(np.sign(plan[:, 2]))) == 2
+        assert {0, 1} <= set(np.sign(plan[:, 2]))
     b = np.random.default_rng(9).standard_normal((n, 2)).astype(np.float32)
+    want = np.asarray(jst.solve_triangular_sparse(
+        jl, b, jst.build_schedule(jl, lower=lower), lower=lower))
+    np.testing.assert_allclose(
+        pst.solve_triangular_sparse(pl, torch.as_tensor(b), ps,
+                                    lower=lower).numpy(),
+        want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("k", [12, 16])
+@pytest.mark.parametrize("lower", [True, False])
+def test_plain_loop_on_chained_schedules_is_jax(k, lower):
+    """D+L and D+U of HPCG's 27-point operator (the multigrid sweeps'
+    matrices), whose plans hold a dataflow chain: the CPU solve (K7's plain
+    version, which no plan changes) equals the JAX package's."""
+    from basic_sparse_matrix_tpu_torch.probes.trsv_probe import hpcg27
+
+    pl = hpcg27(k).triangle(lower=lower)
+    ps = pst.build_schedule(pl, lower=lower)
+    assert (ps.plan[:, 2] < 0).any()
+    indptr, indices, values = pl.numpy()
+    jl = J.CSR.from_coo_arrays(
+        (pl.rows, pl.rows), np.repeat(np.arange(pl.rows), np.diff(indptr)),
+        indices, values, sum_duplicates=False, drop_zeros=False)
+    b = np.random.default_rng(k).standard_normal(pl.rows).astype(np.float32)
     want = np.asarray(jst.solve_triangular_sparse(
         jl, b, jst.build_schedule(jl, lower=lower), lower=lower))
     np.testing.assert_allclose(
