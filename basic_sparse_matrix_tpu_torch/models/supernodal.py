@@ -23,9 +23,11 @@ card captured as one CUDA graph per schedule and replayed from the second
 re-factorization on (the JAX package's ``jax.jit``). Each
 level gathers its operands (element positions, or contiguous runs through
 the K3 kernel ``ops/pallas/runs_read``), runs one batched product, applies
-the updates (per-element scatter, target-rect scatter, or the add-back
-kernel of ``ops/pallas/addback_resident`` (K4) / ``panel_addback`` (K5)),
-and finalises its panels. Every einsum and batched product runs under
+the updates by one of three routes (``"element"``: per-element scatter;
+``"delta"``: target-rect scatter; ``"rects"``: the merged rects through
+``ops/pallas/addback_resident.addback_rects``, the rect entry of the
+add-back kernel on the card and its plain composition on the CPU), and
+finalises its panels. Every einsum and batched product runs under
 ``utils.config.matmul_precision()``: the one-hot merges copy values
 exactly only in full float32, so TF32 is off. Padding lands in a scratch
 slot that is re-zeroed each step.
@@ -45,8 +47,10 @@ The per-group routing (``use_vmem``, ``use_pallas``, ``use_delta``,
 ``use_window``, ``kread``) comes from the JAX package's cost model, whose
 constants (``_VMEM_*``, ``_KREAD_*``, ``_PALLAS_MIN_ELEMENTS``,
 ``_MERGE_CHUNK_ELEMS`` and the model in ``analyze_supernodal``) were set
-for a TPU. They are kept, so that every group takes the same formulation
-as in the JAX package; they are unmeasured on the H100.
+for a TPU. They are kept, so that the schedule equals the JAX package's;
+they are unmeasured on the H100. A group that the JAX package sends to
+its K4 or K5 add-back (two TPU kernels of one function) takes the
+``"rects"`` route here (:func:`_group_delta`).
 """
 
 from __future__ import annotations
@@ -58,7 +62,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops.csr import CSR, to_tensor
 from ..runtime import graphs, symbolic
@@ -165,9 +168,9 @@ def _pow2(x: int) -> int:
 
 
 def _colq(rd: int) -> int:
-    """K5 column-row length for a group's rect rows: 1024-aligned, then
-    rounded up to a power of two (the TPU kernel's DMA tiling; kept so the
-    K5 operand shapes match the JAX package's)."""
+    """The JAX package's K5 column-row length for a group's rect rows:
+    1024-aligned, then rounded up to a power of two (the TPU kernel's DMA
+    tiling); its cost model sizes the shear temp with it."""
     return _pow2(-(-rd // 1024) * 1024)
 
 
@@ -552,7 +555,7 @@ def analyze_supernodal(a: CSR, *, relax: int = 0) -> SupernodalSchedule:
         delta_elems = max(U * maxI * rmax_d, U * maxI * Wt,
                           U * rmax_d * Wt, St * rmax_d * Wt)
         rowmap_mb = delta_elems * 4 / 2**20
-        # The K5 shear temp at the padded shape _delta_scatter allocates:
+        # The JAX package's K5 shear temp at the padded shape it allocates:
         # (pow2(St), pow2(Wt), colq(Rd) + 1024).
         shear_mb = (_pow2(St) * _pow2(Wt)
                     * (_colq(rmax_d) + 1024)) * 4 / 2**20
@@ -724,55 +727,9 @@ def analyze_supernodal(a: CSR, *, relax: int = 0) -> SupernodalSchedule:
     )
 
 
-def _addback_sheared_vmem(lvals, p, tcp, twd, vshape):
-    """The K4 add-back of merged rects ``p`` (St, Rd, Wt), or (Bt, St, Rd,
-    Wt) for a batch, as the JAX package forms it: shear by a reshape,
-    negate, pad to the group's (CQ, col_pad) class shape, dead slots -1,
-    then the span kernel's wrapper."""
-    from ..ops.pallas.addback_resident import addback_resident, shear_reshape
-
-    St, _, Wt = p.shape[-3:]
-    cq, col_pad = vshape
-    psh = shear_reshape(-p, col_pad)               # (St, Wt, col_pad)
-    psh2 = F.pad(psh.reshape(*p.shape[:-3], St * Wt, col_pad),
-                 (0, 0, 0, cq - St * Wt))
-    wv = _arange(Wt, p)[None, :]
-    tcpf = torch.where(wv < twd[:, None], tcp, -1).reshape(-1)
-    tcpf = F.pad(tcpf, (0, cq - St * Wt), value=-1)
-    return addback_resident(lvals, psh2, tcpf.to(torch.int32))
-
-
-def _addback_sheared_pallas(lvals, p, tcp, twd):
-    """The K5 add-back of merged rects ``p`` (St, Rd, Wt), or (Bt, St, Rd,
-    Wt) for a batch, as the JAX package forms it: shear with a constant
-    one-hot product, pad to power-of-two panel and column counts with 1024
-    trailing zeros a row, then the span kernel's wrapper."""
-    from ..ops.pallas.panel_addback import panel_addback
-
-    St, Rd, Wt = p.shape[-3:]
-    col_pad = _colq(Rd)
-    qq = _arange(col_pad, p)
-    wv = _arange(Wt, p)
-    # constant one-hot shear: shift[w, q, r] = (r == q + w); rect rows
-    # past a column's true run read p rows that are already zero
-    shift = (_arange(Rd, p)[None, None, :]
-             == (qq[None, :, None] + wv[:, None, None])
-             ).to(p.dtype)                          # (Wt, col_pad, Rd)
-    psh = torch.einsum("wqr,...srw->...swq", shift, -p)
-    # Power-of-two panel and column counts and 1024 trailing zeros:
-    # the JAX package's K5 operand shapes (padded slots are dead).
-    St_q = _pow2(St)
-    Wt_q = _pow2(Wt)
-    psh = F.pad(psh, (0, 1024, 0, Wt_q - Wt, 0, St_q - St))
-    tcp_q = F.pad(tcp, (0, Wt_q - Wt, 0, St_q - St))
-    twd_q = F.pad(twd, (0, St_q - St))
-    return panel_addback(lvals, psh.contiguous(), tcp_q.to(torch.int32),
-                         twd_q.to(torch.int32))
-
-
 def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
                    tcp, tnr, twd, seg, Rd: int,
-                   scratch: int, mode: str = "delta", vshape=None):
+                   scratch: int, mode: str = "delta"):
     """Apply a level's updates as target-panel rect deltas instead of
     per-element scatters. Each target panel's storage is one contiguous
     trapezoid whose (row rank r, col rank w) element sits at
@@ -784,28 +741,20 @@ def _delta_scatter(lvals, u3, meta, irows, ibelow, jrows,
     * merge updates sharing a target with a one-hot segment product
       (in U-chunks when the temps would exceed ``_MERGE_CHUNK_ELEMS``);
     * ``mode="delta"``: scatter the St merged rects at affine positions;
-    * ``mode="vmem"``: shear the rects into storage rows by a reshape
-      (:func:`shear_reshape`) and add them with K4
-      (``ops/pallas/addback_resident``) over the group's (CQ, col_pad)
-      class shape;
-    * ``mode="pallas"``: shear with a constant one-hot product and add with
-      K5 (``ops/pallas/panel_addback``) over power-of-two (St, Wt) shapes;
-    * on a CUDA ``lvals`` both add-back modes hand the merged rects to the
-      add-back kernel's rect entry (``addback_rects``, counted as a K4 launch
-      under "vmem" and a K5 launch under "pallas"), which shears, negates
-      and masks as it reads: no sheared or padded array is built. On a CPU
-      ``lvals`` the sheared forms run as written above.
+    * ``mode="rects"``: hand the merged rects to the add-back
+      (``ops/pallas/addback_resident.addback_rects``: the rect entry of
+      ``csrc/addback.cu`` on a CUDA tensor, which shears, negates and masks
+      as it reads; its plain composition on a CPU tensor).
 
     Out-of-range ranks (padding lanes, upper wedge) fall out of the one-hot
-    support or land on ``scratch``, which the caller re-zeroes. The
-    add-back modes update ``lvals`` in place. The merge is
-    :func:`_merge_rects`, the add-back :func:`_apply_rects` (the
-    distributed factorization sums the ranks' merged rects between the
-    two). A batch (``lvals`` (Bt, N), ``u3`` (Bt, U, I, J)) runs every
-    step once for all systems."""
+    support or land on ``scratch``, which the caller re-zeroes. Both modes
+    update ``lvals`` in place. The merge is :func:`_merge_rects`, the
+    add-back :func:`_apply_rects` (the distributed factorization sums the
+    ranks' merged rects between the two). A batch (``lvals`` (Bt, N),
+    ``u3`` (Bt, U, I, J)) runs every step once for all systems."""
     St, Wt = tcp.shape
     p = _merge_rects(u3, meta, irows, ibelow, jrows, seg, St, Rd, Wt)
-    return _apply_rects(lvals, p, tcp, tnr, twd, scratch, mode, vshape)
+    return _apply_rects(lvals, p, tcp, tnr, twd, scratch, mode)
 
 
 def _merge_rects(u3, meta, irows, ibelow, jrows, seg, St: int, Rd: int,
@@ -851,27 +800,17 @@ def _merge_rects(u3, meta, irows, ibelow, jrows, seg, St: int, Rd: int,
     return p
 
 
-def _apply_rects(lvals, p, tcp, tnr, twd, scratch: int, mode: str,
-                 vshape=None):
+def _apply_rects(lvals, p, tcp, tnr, twd, scratch: int, mode: str):
     """Subtract the merged rects ``p`` (St, Rd, Wt) from their panels'
-    storage by ``mode`` ("delta", "vmem" or "pallas", as
-    :func:`_delta_scatter` describes); in place. A batch (``lvals`` (Bt,
-    N), ``p`` (Bt, St, Rd, Wt)) in one pass: the delta route adds along the
-    last axis, so each system parks its masked elements on its own scratch
-    slot."""
-    St, Rd, Wt = p.shape[-3:]
-    if mode == "vmem":
-        if lvals.is_cuda:
-            from ..ops.pallas.addback_resident import addback_rects
+    storage by ``mode`` ("delta" or "rects", as :func:`_delta_scatter`
+    describes); in place. A batch (``lvals`` (Bt, N), ``p`` (Bt, St, Rd,
+    Wt)) in one pass: the delta route adds along the last axis, so each
+    system parks its masked elements on its own scratch slot."""
+    if mode == "rects":
+        from ..ops.pallas.addback_resident import addback_rects
 
-            return addback_rects(lvals, p, tcp, tnr, twd)
-        return _addback_sheared_vmem(lvals, p, tcp, twd, vshape)
-    if mode == "pallas":
-        if lvals.is_cuda:
-            from ..ops.pallas.panel_addback import panel_addback_rects
-
-            return panel_addback_rects(lvals, p, tcp, tnr, twd)
-        return _addback_sheared_pallas(lvals, p, tcp, twd)
+        return addback_rects(lvals, p, tcp, tnr, twd)
+    Rd, Wt = p.shape[-2:]
     rr = _arange(Rd, p)[None, :, None]
     wwt = _arange(Wt, p)[None, None, :]
     mask = ((wwt < twd[:, None, None]) & (rr >= wwt)
@@ -949,13 +888,12 @@ def _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
 
 
 def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
-                window: bool = False, smode: str = "element",
-                vshape=None, kread=()):
+                window: bool = False, smode: str = "element", kread=()):
     """One fan-in level: batched panel updates + panel finalisation, on the
     level's compact tables (``top_valid`` bool, the rest int64). With
     ``window=True`` the reads take contiguous runs (through K3 where
     ``kread`` has a class) instead of per-element positions; ``smode``
-    routes the update scatter ("element", "delta", "pallas", "vmem").
+    routes the update scatter ("element", "delta", "rects").
     Updates ``lvals`` ((N,), or (Bt, N) for a batch) in place and returns
     it."""
     (base, meta, irows, ibelow, jrows, jcp, cp, r_tab, tv,
@@ -963,10 +901,9 @@ def _level_step(lvals, tabs, R: int, Rd: int, scratch: int,
     # 1) batched panel-outer-product updates
     U = _update_products(lvals, base, meta, irows, ibelow, jrows, jcp,
                          scratch, window, kread)
-    if smode in ("delta", "pallas", "vmem"):
+    if smode in ("delta", "rects"):
         lvals = _delta_scatter(lvals, U, meta, irows, ibelow, jrows,
-                               tcp, tnr, twd, seg, Rd, scratch, smode,
-                               vshape)
+                               tcp, tnr, twd, seg, Rd, scratch, smode)
     else:
         _element_scatter(lvals, U, base, meta, irows, ibelow, jrows, jcp,
                          scratch)
@@ -1001,12 +938,12 @@ def long_tables(sched: SupernodalSchedule) -> Tuple[Tuple[torch.Tensor,
 
 
 def _run_group(lvals, tabs, R: int, Rd: int, scratch: int,
-               window: bool, smode: str, vshape=None, kread=()):
+               window: bool, smode: str, kread=()):
     """The levels of one group in order (the JAX package's ``lax.scan``),
     on the group's :func:`long_tables`."""
     for li in range(tabs[0].shape[0]):
         lvals = _level_step(lvals, tuple(t[li] for t in tabs), R, Rd,
-                            scratch, window, smode, vshape, kread)
+                            scratch, window, smode, kread)
     return lvals
 
 
@@ -1061,39 +998,21 @@ def _group_read(sched: SupernodalSchedule, gi: int, window):
 
 
 def _group_delta(sched: SupernodalSchedule, gi: int, mode: str) -> str:
-    """Resolve the per-group formulation under config supernodal_scatter:
-    "element", "delta" and "pallas" force that path; "vmem" forces K4 where
-    the group has a shape class and falls back to the auto ladder
-    elsewhere; "auto" takes the host's choice (K4 where it wins, else K5
-    where eligible, else rect where it wins the element count, else
-    element)."""
-    if mode == "element":
-        return "element"
-    if mode == "delta":
-        return "delta"
-    if mode == "pallas":
-        return "pallas"
-    if mode == "vmem":
-        if sched.vmem_shape[gi] is not None:
-            return "vmem"
-    if sched.use_vmem[gi]:
-        return "vmem"
-    if sched.use_pallas[gi]:
-        return "pallas"
+    """Resolve the per-group update route under config supernodal_scatter,
+    whose values are the JAX package's names: "element" and "delta" force
+    that route; "pallas" sends every group to the add-back ("rects");
+    "vmem" sends the groups with a K4 shape class there and takes the auto
+    ladder elsewhere; "auto" takes the host's choice (the add-back where
+    the JAX package takes K4 or K5, else rect where it wins the element
+    count, else element)."""
+    if mode in ("element", "delta"):
+        return mode
+    if mode == "pallas" or (mode == "vmem"
+                            and sched.vmem_shape[gi] is not None):
+        return "rects"
+    if sched.use_vmem[gi] or sched.use_pallas[gi]:
+        return "rects"
     return "delta" if sched.use_delta[gi] else "element"
-
-
-def _pallas_pad(sched: SupernodalSchedule, mode: str) -> int:
-    """lvals padding that keeps every add-back column row (padded and
-    quantised) inside the array."""
-    pads = [0]
-    for gi in range(sched.n_groups):
-        gm = _group_delta(sched, gi, mode)
-        if gm == "pallas":
-            pads.append(_colq(sched.delta_rmax[gi]) + 1024)
-        elif gm == "vmem":
-            pads.append(sched.vmem_shape[gi][1])
-    return max(pads)
 
 
 def _needs_win_pad(sched: SupernodalSchedule, window) -> bool:
@@ -1116,14 +1035,13 @@ def _read_mode(gather: str):
 
 def _numeric_modes(sched: SupernodalSchedule):
     """(read mode, scatter mode, ``lvals`` length past ``nnz_l``) under the
-    current config: the tail padding keeps window reads and add-back
-    column rows from clamping into live data."""
+    current config: the tail padding keeps window reads from clamping into
+    live data (the add-back writes live trapezoids only, all inside
+    ``nnz_l``)."""
     cfg = get_config()
     window = _read_mode(cfg.supernodal_gather)
-    mode = cfg.supernodal_scatter
-    pad = 1 + (_win_pad(sched) if _needs_win_pad(sched, window) else 0) \
-        + _pallas_pad(sched, mode)
-    return window, mode, pad
+    pad = 1 + (_win_pad(sched) if _needs_win_pad(sched, window) else 0)
+    return window, cfg.supernodal_scatter, pad
 
 
 def factorize_supernodal(sched: SupernodalSchedule,
@@ -1182,9 +1100,7 @@ def _factorize_whole(sched: SupernodalSchedule, window, mode: str, pad: int,
             sm = _group_delta(sched, gi, mode)
             win, kr = _group_read(sched, gi, window)
             lvals = _run_group(lvals, tables[gi], sched.panel_rmax[gi],
-                               sched.delta_rmax[gi], scratch, win, sm,
-                               sched.vmem_shape[gi] if sm == "vmem" else None,
-                               kr)
+                               sched.delta_rmax[gi], scratch, win, sm, kr)
     return lvals[..., : sched.nnz_l]
 
 

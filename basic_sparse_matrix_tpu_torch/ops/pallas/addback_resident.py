@@ -17,22 +17,26 @@ into ``lvals`` (the factorization owns it, and a copy per level would cost
 a factor-sized write) and return it. Elements past the end of ``lvals``
 are dropped. ``panel_addback`` (K5) computes the same function over a
 (panel, column) slot layout and shares the kernel and the plain version
-(:func:`addback_spans`, :func:`addback_spans_reference`).
+(:func:`addback_spans`, :func:`addback_spans_reference`). Both span
+wrappers stay as the counterparts of the JAX package's two kernels; the
+factorization calls neither.
 
 :func:`addback_rects` is the same update taken from the merged rects as the
 level's products leave them, ``lvals[tcp[s, w] + r - w] -= p[s, r, w]``: on
 a CUDA tensor the rect entry of the same source reads ``p`` where it lies,
 so :func:`shear_reshape`, the negation and the pads to a class shape are
-never built; :func:`addback_rects_reference` composes them. ``LAUNCHES``
-counts the launches made through this module's wrappers (both entries).
+never built; :func:`addback_rects_reference` composes them. This is the
+factorization's one add-back, on both devices (``supernodal_scatter``'s
+``"rects"`` route). ``LAUNCHES`` counts the launches made through this
+module's wrappers (both entries).
 
 Batches: the rect entry takes a leading batch axis, ``lvals`` (Bt, N) and
 ``p`` (Bt, St, Rd, Wt) with the tables shared (one pattern, ``Bt`` sets of
 values), in one launch; this is what the batched factorization launches.
 The span entry (:func:`addback_resident`, and ``panel_addback`` called by
 name) takes one system on the card; its plain version also takes a batch,
-``lvals`` (Bt, N) with ``rows`` (Bt, C, L), for the factorization's CPU
-forms.
+``lvals`` (Bt, N) with ``rows`` (Bt, C, L), as the JAX package's kernels
+do under ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -42,8 +46,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-# Launches of the add-back kernel through addback_resident (K4) in this
-# process (a plain counter that a caller may reset to 0).
+# Launches of the add-back kernel through this module's wrappers
+# (addback_resident, addback_rects) in this process (a plain counter that a
+# caller may reset to 0).
 LAUNCHES = 0
 
 
@@ -218,30 +223,6 @@ def addback_rects_reference(lvals: torch.Tensor, p: torch.Tensor,
         tcpf.reshape(-1).to(torch.int32))
 
 
-def launch_rects(lvals: torch.Tensor, p: torch.Tensor, tcp: torch.Tensor,
-                 tnr: torch.Tensor, twd: torch.Tensor,
-                 what: str) -> torch.Tensor:
-    """Launch the rect entry on CUDA tensors (in place; returns ``lvals``).
-    The caller counts the launch."""
-    from ...runtime import cuda_kernels
-
-    _check_rects(lvals, p, tcp, tnr, twd)
-    if not lvals.is_contiguous():
-        raise ValueError("lvals must be contiguous: the add-back is in place")
-    p, tcp, tnr, twd = (t.contiguous() for t in (p, tcp, tnr, twd))
-    bt = lvals.shape[0] if lvals.ndim == 2 else 1
-    lib = cuda_kernels.load()
-    with torch.cuda.device(lvals.device):
-        stream = torch.cuda.current_stream(lvals.device).cuda_stream
-        status = lib.bsm_addback_rects(
-            lvals.data_ptr(), int(lvals.shape[-1]), p.data_ptr(),
-            tcp.data_ptr(), tnr.data_ptr(), twd.data_ptr(), bt,
-            *(int(d) for d in p.shape[-3:]), int(tcp.dtype == torch.int64),
-            stream)
-    cuda_kernels.check_launch(lib, status, what)
-    return lvals
-
-
 def addback_rects(lvals: torch.Tensor, p: torch.Tensor, tcp: torch.Tensor,
                   tnr: torch.Tensor, twd: torch.Tensor) -> torch.Tensor:
     """Subtract merged update rects from their panels' storage, in place:
@@ -267,7 +248,22 @@ def addback_rects(lvals: torch.Tensor, p: torch.Tensor, tcp: torch.Tensor,
     """
     if not lvals.is_cuda:
         return addback_rects_reference(lvals, p, tcp, tnr, twd)
+    from ...runtime import cuda_kernels
+
     global LAUNCHES
-    out = launch_rects(lvals, p, tcp, tnr, twd, "addback_rects")
+    _check_rects(lvals, p, tcp, tnr, twd)
+    if not lvals.is_contiguous():
+        raise ValueError("lvals must be contiguous: the add-back is in place")
+    p, tcp, tnr, twd = (t.contiguous() for t in (p, tcp, tnr, twd))
+    bt = lvals.shape[0] if lvals.ndim == 2 else 1
+    lib = cuda_kernels.load()
+    with torch.cuda.device(lvals.device):
+        stream = torch.cuda.current_stream(lvals.device).cuda_stream
+        status = lib.bsm_addback_rects(
+            lvals.data_ptr(), int(lvals.shape[-1]), p.data_ptr(),
+            tcp.data_ptr(), tnr.data_ptr(), twd.data_ptr(), bt,
+            *(int(d) for d in p.shape[-3:]), int(tcp.dtype == torch.int64),
+            stream)
+    cuda_kernels.check_launch(lib, status, "addback_rects")
     LAUNCHES += 1
-    return out
+    return lvals

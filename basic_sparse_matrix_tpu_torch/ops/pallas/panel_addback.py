@@ -1,5 +1,4 @@
-"""Panel-window add-back for the supernodal delta scatter: the K5 wrapper
-and its plain version.
+"""Panel-window add-back: the K5 wrapper and its plain version.
 
 Counterpart of ``basic_sparse_matrix_tpu/ops/pallas/panel_addback.py``.
 :func:`panel_addback` adds ``psh[s, w]`` into ``lvals[tcp[s, w] : tcp[s, w]
@@ -11,25 +10,18 @@ for a dead slot) for the plain ``index_add_`` version, which a CPU tensor
 takes; for a CUDA tensor it hands ``tcp`` and ``twd`` as they are to the
 span entry of ``csrc/addback.cu``, which tells the dead columns itself (or
 it raises).
-In place, as K4; returns ``lvals``. :func:`panel_addback_rects` is the same
-update taken from the unsheared rects (the rect entry of that source, see
-``addback_resident.addback_rects``), and takes a leading batch axis (one
-pattern, ``Bt`` sets of values) in one launch. :func:`panel_addback` (the
-span entry) takes one system on the card; its plain version also takes a
-batch, for the factorization's CPU forms. ``LAUNCHES`` counts the launches
-made through this module's wrappers.
+In place, as K4; returns ``lvals``. The span entry takes one system on the
+card; its plain version also takes a batch. The factorization launches
+neither: its add-back is the rect entry (``addback_resident.addback_rects``),
+and this module stays as the counterpart of the JAX package's kernel.
+``LAUNCHES`` counts the launches made through :func:`panel_addback`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .addback_resident import (
-    addback_rects_reference,
-    addback_spans,
-    addback_spans_reference,
-    launch_rects,
-)
+from .addback_resident import addback_spans, addback_spans_reference
 
 # Launches of the add-back kernel through panel_addback (K5) in this
 # process (a plain counter that a caller may reset to 0).
@@ -88,21 +80,5 @@ def panel_addback(lvals: torch.Tensor, psh: torch.Tensor, tcp: torch.Tensor,
     out = addback_spans(lvals, psh.reshape(-1, psh.shape[-1]),
                         tcp.reshape(-1).to(torch.int32), "panel_addback",
                         twd.to(torch.int32))
-    LAUNCHES += 1
-    return out
-
-
-def panel_addback_rects(lvals: torch.Tensor, p: torch.Tensor,
-                        tcp: torch.Tensor, tnr: torch.Tensor,
-                        twd: torch.Tensor) -> torch.Tensor:
-    """``addback_resident.addback_rects`` counted as a K5 launch: the one-hot
-    shear, the negation and :func:`panel_addback` in one kernel launch on a
-    CUDA tensor (or it raises), ``addback_rects_reference`` on a CPU one.
-    Same arguments (a leading batch axis on ``lvals`` and ``p`` included),
-    in place; returns ``lvals``."""
-    if not lvals.is_cuda:
-        return addback_rects_reference(lvals, p, tcp, tnr, twd)
-    global LAUNCHES
-    out = launch_rects(lvals, p, tcp, tnr, twd, "panel_addback_rects")
     LAUNCHES += 1
     return out

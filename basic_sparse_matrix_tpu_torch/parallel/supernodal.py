@@ -10,23 +10,24 @@ single-device level step's pieces on them:
 * the reads (windows through K3 where the group has a ``kread`` class,
   else element positions) and the batched product;
 * the merge of the updates: on groups routed to a rect formulation
-  (``delta``, ``vmem``, ``pallas``) each rank merges its updates into the
-  level's (St, Rd, Wt) target rects (its ``seg`` indexes the level's full
-  target table), the ranks' rects are summed in rank order
-  (``all_reduce``) and added back ONCE, through the add-back kernel's rect
-  entry on the card, as on one device. (Summing per-rank delta vectors of
-  the factor's length instead would move ``nnz_l`` floats a rank and a
-  level, and launch the add-back once a rank.) On ``element`` groups the
-  ranks' products are gathered and scattered once, as on one device;
+  (``delta``, ``rects``) each rank merges its updates into the level's
+  (St, Rd, Wt) target rects (its ``seg`` indexes the level's full target
+  table), the ranks' rects are summed in rank order (``all_reduce``) and
+  added back ONCE, by the masked scatter or through ``addback_rects`` (the
+  add-back kernel's rect entry on the card), as on one device. (Summing
+  per-rank delta vectors of the factor's length instead would move
+  ``nnz_l`` floats a rank and a level, and launch the add-back once a
+  rank.) On ``element`` groups the ranks' products are gathered and
+  scattered once, as on one device;
 * the panel factorisations (``cholesky_ex``, ``_nan_failed``, the
   ``isfinite`` guard), whose results are gathered, not summed, and written
   back at the level's positions.
 
 Routing stays per group under the config's ``supernodal_gather`` and
 ``supernodal_scatter`` (``_group_read``, ``_group_delta``), and ``lvals``
-gets ``factorize_supernodal``'s tail padding, so K3 windows and add-back
-rows never clamp into live data. The JAX package pads each level's batch
-to a multiple of the mesh size and merges every phase by ``psum``.
+gets ``factorize_supernodal``'s tail padding, so K3 windows never clamp
+into live data. The JAX package pads each level's batch to a multiple of
+the mesh size and merges every phase by ``psum``.
 
 On the card the whole phase is one CUDA graph per schedule, mesh, value
 shape and configuration (``comm.compiled``; the tag is the single-device
@@ -57,7 +58,7 @@ from .mesh import ROWS
 
 
 def _level_sharded(lvals, tabs, comm, R: int, Rd: int, scratch: int,
-                   window: bool, smode: str, vshape, kread):
+                   window: bool, smode: str, kread):
     """One level across the ranks of ``comm``; updates the replicated
     ``lvals`` in place."""
     (base, meta, irows, ibelow, jrows, jcp, cp, r_tab, tv,
@@ -78,7 +79,7 @@ def _level_sharded(lvals, tabs, comm, R: int, Rd: int, scratch: int,
         prods.append(sn._update_products(
             lvals, base[s], meta[s], irows[s], ibelow[s], jrows[s], jcp[s],
             scratch, window, kread))
-    if smode in ("delta", "pallas", "vmem"):
+    if smode in ("delta", "rects"):
         rects = []
         for r, u3 in zip(comm.local, prods):
             s = slice(ub[r], ub[r + 1])
@@ -88,7 +89,7 @@ def _level_sharded(lvals, tabs, comm, R: int, Rd: int, scratch: int,
                 else sn._merge_rects(u3, meta[s], irows[s], ibelow[s],
                                      jrows[s], seg[s], St, Rd, Wt))
         sn._apply_rects(lvals, comm.all_reduce(rects)[0], tcp, tnr, twd,
-                        scratch, smode, vshape)
+                        scratch, smode)
     else:
         prods = [lvals.new_zeros((0, I, J)) if u3 is None else u3
                  for u3 in prods]
@@ -144,12 +145,11 @@ def _factorize_levels(sched: SupernodalSchedule, comm, window, mode: str,
         for gi in range(sched.n_groups):
             smode = sn._group_delta(sched, gi, mode)
             win, kread = sn._group_read(sched, gi, window)
-            vshape = sched.vmem_shape[gi] if smode == "vmem" else None
             tabs = tables[gi]
             for li in range(tabs[0].shape[0]):
                 _level_sharded(lvals, tuple(t[li] for t in tabs), comm,
                                sched.panel_rmax[gi], sched.delta_rmax[gi],
-                               scratch, win, smode, vshape, kread)
+                               scratch, win, smode, kread)
     return lvals[: sched.nnz_l]
 
 

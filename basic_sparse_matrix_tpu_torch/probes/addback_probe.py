@@ -1,33 +1,29 @@
 """Add-back probe: what a level's add-back step costs on the card, as the
-sheared forms the JAX package builds for its TPU kernels and as the rect
-entry that reads the merged rects where they lie.
+rect entry that reads the merged rects where they lie and as the one
+PyTorch call for the same function.
 
 The supernodal factorization (``models/supernodal.py``) ends every level's
 update with ``lvals[tcp[s, w] + r - w] -= p[s, r, w]`` over the level's
-merged rects ``p``. Three formulations of that step are timed on the same
-operands, each held to the others:
+merged rects ``p``. Two formulations of that step are timed on the same
+operands, each held to the other:
 
-* ``sheared``: ``_addback_sheared_vmem`` / ``_addback_sheared_pallas``, the
-  shear, negation and pads to a class shape followed by the span entry of
-  ``csrc/addback.cu`` (what a CPU tensor still runs, with the plain version
-  in the kernel's place);
-* ``rects``: ``addback_rects``, one launch of the rect entry (what a CUDA
-  tensor runs);
+* ``rects``: ``addback_rects``, one launch of the rect entry (what the
+  ``"rects"`` route runs on a CUDA tensor);
 * ``index_add``: the masked ``index_add_`` of ``supernodal_scatter="delta"``
   with its positions built, the one PyTorch call for the same function.
 
 The operands are the real target tables of every level that the 33³
-Laplacian's schedule (``ordering="nd"``) routes to K4 or K5, with seeded
-values on each panel's live trapezoid. Two times per formulation, both CUDA
-events: ``call`` at the host's pace (what the level loop pays: wrapper,
-launches and device work) and ``device`` with the launches queued behind a
-spin kernel (device work only). The span entry alone is timed at the largest
-K4 group's and the K5 group's sheared operands and at the three K4 class
-shapes with every slot live (``launch_floor_device_ms``
-is the same event pair around a one-element fill, the least any launch
-reads), and beside the span entry
-of another build of ``addback.cu`` when ``--span-source`` names one (for
-example an earlier commit's file). ``--numeric N`` times
+Laplacian's schedule (``ordering="nd"``) routes to the add-back
+(``"rects"``), with seeded values on each panel's live trapezoid. Two times
+per formulation, both CUDA events: ``call`` at the host's pace (what the
+level loop pays: wrapper, launches and device work) and ``device`` with the
+launches queued behind a spin kernel (device work only). The span entry
+alone is timed at the sheared operands the JAX package would build for the
+largest group it sends to K4 and the largest it sends to K5, and at the
+three K4 class shapes with every slot live (``launch_floor_device_ms`` is
+the same event pair around a one-element fill, the least any launch reads),
+and beside the span entry of another build of ``addback.cu`` when
+``--span-source`` names one (for example an earlier commit's file). ``--numeric N`` times
 ``factorize_supernodal`` (the solver's ``timings["numeric"]``) N more times
 on the same schedule, synchronised; with ``--skip-levels`` nothing else
 runs, and the file then works inside an earlier commit's package too (copy
@@ -131,17 +127,19 @@ def index_add_tail(lvals, p, tcp, tnr, twd, scratch: int):
 
 
 def routed_levels(sched):
-    """(group, mode, level, tcp, tnr, twd) of every level the schedule
-    routes to K4 ("vmem") or K5 ("pallas") under ``auto``."""
+    """(group, kind, level, tcp, tnr, twd) of every level the schedule
+    routes to the add-back ("rects") under ``auto``; ``kind`` names the
+    JAX package's kernel for the group, K4 ("vmem") or K5 ("pallas"), which
+    sets the span entry's operand shapes."""
     tab = sn._TABLE_INDEX
     for gi in range(sched.n_groups):
-        mode = sn._group_delta(sched, gi, "auto")
-        if mode not in ("vmem", "pallas"):
+        if sn._group_delta(sched, gi, "auto") != "rects":
             continue
+        kind = "vmem" if sched.use_vmem[gi] else "pallas"
         tabs = [sched.tabs[gi][tab[name]].long()
                 for name in ("tgt_cp", "tgt_nrows", "tgt_w")]
         for li in range(tabs[0].shape[0]):
-            yield (gi, mode, li, *(t[li] for t in tabs))
+            yield (gi, kind, li, *(t[li] for t in tabs))
 
 
 def close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -152,43 +150,33 @@ def close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def measure_levels(sched, lvals, iters: int) -> list:
-    """Per routed level: each formulation held to ``index_add`` and timed
-    at the host's pace; per group the sums and, at level 0, the device
-    times."""
+    """Per routed level: the rect entry held to ``index_add`` and both
+    timed at the host's pace; per group the sums and, at level 0, the
+    device times."""
     gen = torch.Generator(device=lvals.device).manual_seed(0)
     scratch = sched.nnz_l
     groups = {}
-    for gi, mode, li, tcp, tnr, twd in routed_levels(sched):
+    for gi, kind, li, tcp, tnr, twd in routed_levels(sched):
         rd = sched.delta_rmax[gi]
         p = seeded_rects(tcp, tnr, twd, rd, gen)
-        if mode == "vmem":
-            vshape = sched.vmem_shape[gi]
-
-            def sheared(lv):
-                return sn._addback_sheared_vmem(lv, p, tcp, twd, vshape)
-        else:
-            def sheared(lv):
-                return sn._addback_sheared_pallas(lv, p, tcp, twd)
         runs = {
-            "sheared": sheared,
             "rects": lambda lv: k4.addback_rects(lv, p, tcp, tnr, twd),
             "index_add": lambda lv: index_add_tail(lv, p, tcp, tnr, twd,
                                                    scratch),
         }
         ref = runs["index_add"](lvals.clone())
         ref[scratch] = 0.0
-        errs = {name: close(f"group {gi} level {li} {name}",
-                            runs[name](lvals.clone()), ref)
-                for name in ("sheared", "rects")}
+        err = close(f"group {gi} level {li} rects",
+                    runs["rects"](lvals.clone()), ref)
         work = lvals.clone()
         g = groups.setdefault(gi, {
-            "group": gi, "mode": mode, "levels": 0,
+            "group": gi, "kind": kind, "levels": 0,
             "rect_shape": [int(x) for x in p.shape],
             "live_elements": 0, "max_abs_err": 0.0,
             "call_ms": {name: 0.0 for name in runs}, "device_ms": {}})
         g["levels"] += 1
         g["live_elements"] += int((p != 0).sum())
-        g["max_abs_err"] = max(g["max_abs_err"], *errs.values())
+        g["max_abs_err"] = max(g["max_abs_err"], err)
         for name, run in runs.items():
             g["call_ms"][name] += cuda_time_ms(lambda: run(work), warmup=1,
                                                iters=iters)
@@ -219,9 +207,9 @@ def build_span_entry(source: Path, out_dir: Path):
 
 
 def measure_spans(sched, lvals, other) -> list:
-    """The span entry alone at the sheared operands of the largest K4
-    group and of the K5 group (level 0), beside ``other`` (another build's
-    ``bsm_addback``) where given."""
+    """The span entry alone at the sheared operands of the largest group of
+    each kind (level 0), beside ``other`` (another build's ``bsm_addback``)
+    where given."""
     gen = torch.Generator(device=lvals.device).manual_seed(1)
     best = {}
     for gi, mode, li, tcp, tnr, twd in routed_levels(sched):
@@ -299,7 +287,7 @@ def measure_spans(sched, lvals, other) -> list:
 def padded_lvals(sched, device) -> torch.Tensor:
     """Seeded factor values with the padding ``factorize_supernodal`` gives
     them under the default configuration."""
-    pad = 1 + sn._win_pad(sched) + sn._pallas_pad(sched, "auto")
+    pad = 1 + sn._win_pad(sched)
     gen = torch.Generator(device=device).manual_seed(2)
     out = torch.zeros(sched.nnz_l + pad, device=device)
     out[: sched.nnz_l] = torch.randn(sched.nnz_l, generator=gen,
@@ -348,7 +336,7 @@ def main(argv=None) -> None:
     print(json.dumps({
         "routed_levels": sum(rep["levels"] for rep in reports),
         "sum_call_ms": {name: sum(rep["call_ms"][name] for rep in reports)
-                        for name in ("sheared", "rects", "index_add")}}),
+                        for name in ("rects", "index_add")}}),
           flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         other = build_span_entry(args.span_source, Path(tmp)) \

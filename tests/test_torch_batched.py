@@ -413,16 +413,15 @@ def test_addback_rects_reference_batched_is_the_loop(bt, st, rd, wt, n, idx):
     """Runs cut by the end of ``lvals`` drop their tail in each system."""
     lv, p, tcp, tnr, twd = _rects(np.random.default_rng(bt * st + rd), bt,
                                   st, rd, wt, n, idx)
-    for fn in (k4.addback_rects, k5.panel_addback_rects):
-        got = fn(lv.clone(), p, tcp, tnr, twd)
-        want = torch.stack([fn(lv[i].clone(), p[i], tcp, tnr, twd)
-                            for i in range(bt)])
-        assert torch.equal(got, want)
+    got = k4.addback_rects(lv.clone(), p, tcp, tnr, twd)
+    want = torch.stack([k4.addback_rects(lv[i].clone(), p[i], tcp, tnr, twd)
+                        for i in range(bt)])
+    assert torch.equal(got, want)
 
 
 def test_span_entry_plain_versions_batched_are_the_loop():
-    """The sheared CPU forms of the factorization use the span entry's
-    plain versions with a batch: both layouts, bit for bit against the
+    """The span entry's plain versions take a batch, as the JAX package's
+    kernels do under ``jax.vmap``: both layouts, bit for bit against the
     loop."""
     rng = np.random.default_rng(5)
     bt, n = 3, 500

@@ -86,7 +86,7 @@ def test_batched_supernodal_matches_vmap(family, relax, mode, window,
 
     from basic_sparse_matrix_tpu_torch.ops.pallas import addback_resident
     from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback
-    calls = {"addback_resident": 0, "panel_addback": 0}
+    calls = {"addback_rects": 0, "addback_resident": 0, "panel_addback": 0}
 
     def counted(mod, name):
         fn = getattr(mod, name)
@@ -96,6 +96,7 @@ def test_batched_supernodal_matches_vmap(family, relax, mode, window,
             assert args[0].shape[0] == BT       # one call for the batch
             return fn(*args)
         monkeypatch.setattr(mod, name, wrapper)
+    counted(addback_resident, "addback_rects")
     counted(addback_resident, "addback_resident")
     counted(panel_addback, "panel_addback")
 
@@ -113,11 +114,10 @@ def test_batched_supernodal_matches_vmap(family, relax, mode, window,
     np.testing.assert_allclose(
         got.double().numpy(), want, rtol=RTOL,
         atol=ATOL_OF_MAX * float(np.abs(want).max()))
-    levels = {m: sum(int(sched.tabs[gi][0].shape[0])
-                     for gi in range(sched.n_groups)
-                     if psn._group_delta(sched, gi, mode) == m)
-              for m in ("vmem", "pallas")}
-    assert calls == {"addback_resident": levels["vmem"],
-                     "panel_addback": levels["pallas"]}
+    levels = sum(int(sched.tabs[gi][0].shape[0])
+                 for gi in range(sched.n_groups)
+                 if psn._group_delta(sched, gi, mode) == "rects")
+    assert calls == {"addback_rects": levels, "addback_resident": 0,
+                     "panel_addback": 0}
     if mode in ("vmem", "pallas"):
-        assert levels[mode] > 0
+        assert levels > 0

@@ -585,7 +585,7 @@ def test_addback_entries_on_dead_and_empty_operands(cuda):
     p = torch.ones((4, 16, 8), device=cuda)
     k4.addback_rects(lv, p, tcp, zero + 16, zero)          # no live column
     k4.addback_rects(lv, p, tcp, zero, zero + 8)           # no live row
-    k5.panel_addback_rects(lv, p[:0], tcp[:0], zero[:0], zero[:0])
+    k4.addback_rects(lv, p[:0], tcp[:0], zero[:0], zero[:0])
     k4.addback_rects(lv, p[:, :0], tcp, zero, zero + 8)
     torch.cuda.synchronize()
     assert torch.equal(lv, lv0)
@@ -598,7 +598,7 @@ def test_addback_entries_on_dead_and_empty_operands(cuda):
 ])
 def test_addback_rects_kernel_matches_plain(cuda, st, rd, wt, n, idx):
     """The rect entry against the shear, negation and span add-back it
-    folds, through both wrappers: tiles cut by ``tnr``, ``twd`` and the
+    folds, at both index types: tiles cut by ``tnr``, ``twd`` and the
     wedge, column counts that are no multiple of 32, rects taller than one
     tile, panels whose runs overlap, nonzero values outside the live
     trapezoids (never added) and runs cut by the end of ``lvals``."""
@@ -612,12 +612,11 @@ def test_addback_rects_kernel_matches_plain(cuda, st, rd, wt, n, idx):
     lv0 = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
                           device=cuda)
     ref = k4.addback_rects_reference(lv0.clone(), p, tcp, tnr, twd)
-    for mod, fn in ((k4, k4.addback_rects), (k5, k5.panel_addback_rects)):
-        before = mod.LAUNCHES
-        out = fn(lv0.clone(), p, tcp, tnr, twd)
-        torch.cuda.synchronize()
-        assert mod.LAUNCHES == before + 1
-        _tight(out, ref)
+    before = k4.LAUNCHES
+    out = k4.addback_rects(lv0.clone(), p, tcp, tnr, twd)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    _tight(out, ref)
 
 
 def test_addback_rects_equals_the_delta_route_and_spares_scratch(cuda):
@@ -677,8 +676,8 @@ def test_supernodal_kernels_reject_what_they_do_not_take(cuda):
                          torch.zeros(2, **i32),
                          torch.zeros(2, dtype=torch.int64, device=cuda))
     with pytest.raises(TypeError):
-        k5.panel_addback_rects(lv, p.double(), torch.zeros((2, 3), **i32),
-                               torch.zeros(2, **i32), torch.zeros(2, **i32))
+        k4.addback_rects(lv, p.double(), torch.zeros((2, 3), **i32),
+                         torch.zeros(2, **i32), torch.zeros(2, **i32))
     with pytest.raises(ValueError):
         k4.addback_rects(torch.zeros(200, device=cuda)[::2], p,
                          torch.zeros((2, 3), **i32), torch.zeros(2, **i32),
@@ -732,14 +731,14 @@ def test_addback_rects_kernel_batched_matches_plain(cuda, bt, st, rd, wt, n,
     lv0 = torch.as_tensor(rng.standard_normal((bt, n)).astype(np.float32),
                           device=cuda)
     ref = k4.addback_rects_reference(lv0.clone(), p, tcp, tnr, twd)
-    for mod, fn in ((k4, k4.addback_rects), (k5, k5.panel_addback_rects)):
-        before = mod.LAUNCHES
-        out = fn(lv0.clone(), p, tcp, tnr, twd)
-        torch.cuda.synchronize()
-        assert mod.LAUNCHES == before + 1
-        _tight(out, ref)
-        for i in range(bt):
-            _tight(out[i], fn(lv0[i].clone(), p[i], tcp, tnr, twd))
+    before = k4.LAUNCHES
+    out = k4.addback_rects(lv0.clone(), p, tcp, tnr, twd)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    _tight(out, ref)
+    for i in range(bt):
+        _tight(out[i], k4.addback_rects(lv0[i].clone(), p[i], tcp, tnr,
+                                        twd))
 
 
 def test_span_entry_takes_one_system_on_the_card(cuda):
@@ -796,11 +795,12 @@ def test_supernodal_factor_on_card_matches_cpu(cuda, gather, scatter):
         torch.cuda.synchronize()
     finally:
         cfgmod.set_config(old)
-    modes = {sn._group_delta(sched, gi, scatter)
-             for gi in range(sched.n_groups)}
+    levels = sum(int(sched.tabs[gi][0].shape[0])
+                 for gi in range(sched.n_groups)
+                 if sn._group_delta(sched, gi, scatter) == "rects")
     assert (got[0] > 0) == (gather in ("kernel", "auto"))
-    assert (got[1] > 0) == ("vmem" in modes)
-    assert (got[2] > 0) == ("pallas" in modes)
+    assert got[1:] == (levels, 0)
+    assert (levels > 0) == (scatter in ("auto", "vmem", "pallas"))
     _close(lv[str(cuda)], lv["cpu"].to(cuda))
 
 

