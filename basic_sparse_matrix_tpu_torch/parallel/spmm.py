@@ -174,7 +174,8 @@ def spmm_sharded_ell(ell, b, mesh) -> torch.Tensor:
     blocks = []
     for s in comm.local:
         part = ELL(cols=ell.cols[s * rps: (s + 1) * rps],
-                   vals=ell.vals[s * rps: (s + 1) * rps], n_cols=ell.n_cols)
+                   vals=ell.vals[s * rps: (s + 1) * rps], n_cols=ell.n_cols,
+                   _cols_ok=ell._cols_ok)
         out = spmm_ell(part, b)
         blocks.append(F.pad(out, (0, 0, 0, rps - out.shape[0])))
     return held_rows(blocks, comm.local, rps)

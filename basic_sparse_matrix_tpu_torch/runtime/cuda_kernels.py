@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("spmm_bsr.cu", "spmm_stream.cu", "runs_read.cu", "addback.cu",
-           "entry_fma.cu", "trsv_level.cu")
+           "entry_fma.cu", "trsv_level.cu", "ell_spmm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -73,6 +73,10 @@ _SIGNATURES = {
     "bsm_trsv": [_P] * 9 + [_I] * 4 + [_LL, _LL, _LL, _P],
     # out[8]
     "bsm_trsv_info": [_P],
+    # cols, vals, B, C, rows, width, n, sb0, sb1, ldc, threads, stream
+    "bsm_ell_spmm": [_P] * 4 + [_LL, _I, _I, _LL, _LL, _LL, _I, _P],
+    # B, C, width, n, sb0, sb1, ldc, out[2]
+    "bsm_ell_spmm_shape": [_P, _P, _I, _I, _LL, _LL, _LL, _P],
 }
 
 

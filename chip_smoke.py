@@ -19,8 +19,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. Device: the card's name and ``nvidia-smi``'s name and power limit.
 2. Build: the K1 (BSR), K2 (streaming: tile and sliced kernels), K3 (run
-   reads), K4/K5 (add-back: span and rect entries), K6 (per-entry FMA)
-   and K7 (the triangular solve's level step) kernels from
+   reads), K4/K5 (add-back: span and rect entries), K6 (per-entry FMA),
+   K7 (the triangular solve's level step) and K8 (the ELL product) kernels
+   from
    ``basic_sparse_matrix_tpu_torch/csrc`` with nvcc, one process per
    source, timed; the ptxas register/spill lines.
 3. Kernel vs plain: each kernel and its plain PyTorch version on the card
@@ -116,7 +117,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 12. Iterative and spectral path on the 33³ Laplacian: the IC(0) set-up
     (L's pattern levels), timed; ``op.solve_cg`` to ``tol=1e-6`` with the
     relative residual recomputed in float64 on the card (<= 1e-5) and the
-    ms per iteration; ``op.eigen_values(32)`` against the analytic
+    ms per iteration; one more replayed ``solve_cg`` under the recorder,
+    whose A·p must run on K8 (``csrc/ell_spmm.cu``): ``ell.launches`` one
+    a step of its chunk graphs (masked steps past the end included), no
+    ``ell.plain``, and no new Python-level launch (K8's count set to 0
+    right before); ``op.eigen_values(32)`` against the analytic
     λ_max = 6(1 + cos(π/34)) (Ritz values lie inside the spectrum; a
     sanity bound of 1e-2 relative, see ``RITZ_MAX_REL``) and λ_min (not
     more than 1e-4 below), ``condition_estimate`` beside the analytic
@@ -297,6 +302,22 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     operations a level) and the bound; each solve within 1e-5·max|ref| of
     the plain version (``probes/trsv_probe.py::hpcg_rows``). Its row in
     the ``kernels`` line counts phase 6's launches.
+
+26. K8 (``csrc/ell_spmm.cu``, the ELL product; run after phase 25): its
+    time on HPCG's operator at 104³ where the benchmark runs it, the SpMV
+    (width 27), the SpMV of the strict lower triangle (width 13) and the
+    product with N = 32 columns, each beside the plain version (gather,
+    multiply, row sum), ``torch.sparse.mm`` of a ``sparse_csr_tensor`` (the
+    library yardstick) and the bound; and N = 256 on the same operand
+    beside K1's time there, as data for the dispatch's choice
+    (``probes/ell_probe.py::hpcg_rows``). Its row in the ``kernels`` line
+    counts, each from 0 by the recorder's ``ell.launches``, the K8
+    launches of one ``spmm_auto`` call at N = 32 on that operand (the ELL
+    rung: one), those of phase 12's replayed ``solve_cg`` a PCG step (one)
+    and those of one replayed V-cycle of HPCG's 4-level multigrid at 16³
+    (``probes/ell_probe.py::vcycle_launches``; 13: on each finer grid the
+    pre-smoothing's backward sweep, the residual and the post-smoothing's
+    two sweeps, and the coarsest grid's backward sweep).
 
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
@@ -594,11 +615,12 @@ def kernel_modules():
     from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel
     from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel
     from basic_sparse_matrix_tpu_torch.models import sparse_triangular
+    from basic_sparse_matrix_tpu_torch.ops import ell
 
     return {"spmm_bsr": spmm_kernel, "spmm_stream": stream_kernel,
             "runs_read": runs_read, "addback_resident": addback_resident,
             "panel_addback": panel_addback, "entry_fma": entry_fma,
-            "trsv_level": sparse_triangular}
+            "trsv_level": sparse_triangular, "ell_spmm": ell}
 
 
 def zero_launches() -> None:
@@ -1447,13 +1469,17 @@ def scatter_tier(dev):
     return solver, a
 
 
-def iterative_path(dev) -> None:
-    """Phase 12: IC(0)-PCG, Lanczos and Chebyshev on the 33³ Laplacian."""
+def iterative_path(dev) -> dict:
+    """Phase 12: IC(0)-PCG, Lanczos and Chebyshev on the 33³ Laplacian;
+    returns the K8 launches of a replayed ``solve_cg`` and the PCG steps
+    its chunk graphs ran."""
     from basic_sparse_matrix_tpu_torch import CSR, SparseOperator
     from basic_sparse_matrix_tpu_torch.models import chebyshev_solve
+    from basic_sparse_matrix_tpu_torch.models import pcg
     from basic_sparse_matrix_tpu_torch.models import sparse_cholesky as sc
     from basic_sparse_matrix_tpu_torch.models.lanczos import (
         LanczosSetup, _ritz_values)
+    from basic_sparse_matrix_tpu_torch.runtime import profiling
 
     n, r, c, v = laplacian_3d(SOLVER_K)
     a = CSR.from_coo_arrays((n, n), r, c, v, device=dev)
@@ -1478,6 +1504,24 @@ def iterative_path(dev) -> None:
         f"{PCG_RES_MAX:g})")
     if not true_res <= PCG_RES_MAX:
         raise AssertionError("solve_cg: residual over the limit")
+    zero_launches()
+    with profiling.recording():
+        op.solve_cg(b, tol=1e-6)
+    snap = profiling.snapshot()
+    steps = (getattr(op.pcg_setup, "chunk", pcg.CHUNK)
+             * snap.summary()["bsm.pcg.chunk"]["count"])
+    k8 = {"launches": snap.counters.get("ell.launches", 0),
+          "products": snap.counters.get("ell.products", 0),
+          "plain": snap.counters.get("ell.plain", 0),
+          "python_launches": read_launches()["ell_spmm"], "steps": steps,
+          "iterations": it}
+    log(f"  solve_cg replayed under the recorder: {k8['launches']} K8 "
+        f"launches of {k8['products']} ELL products ({k8['plain']} plain) "
+        f"over {steps} chunk steps ({it} iterations); {k8['python_launches']}"
+        f" Python-level K8 calls")
+    if (k8["launches"] != steps or k8["products"] != steps or k8["plain"]
+            or k8["python_launches"]):
+        raise AssertionError(f"solve_cg: A·p not one K8 launch a step: {k8}")
     ritz, t_lz = timed(lambda: op.eigen_values(32))
     ritz = ritz.double().cpu().numpy()
     rel_max = (LAMBDA_MAX - ritz[-1]) / LAMBDA_MAX
@@ -1513,6 +1557,7 @@ def iterative_path(dev) -> None:
     log(f"  op.solve_chebyshev, Lanczos bounds, 200 iterations: "
         f"{t_ch * 1e3:.1f} ms (a replay: the bounds are operands), "
         f"residual {res:.3e} (not asserted)")
+    return k8
 
 
 def card_vs_cpu_k14(dev) -> None:
@@ -1925,6 +1970,61 @@ def k7_phase(dev, launches: int) -> dict:
             "plain_ms": level["plain_ms"], "bound_ms": level["bound_ms"],
             "bound_by": "bytes",
             "cases": {name: {k: r[k] for k in keep}
+                      for name, r in rows.items()}}
+
+
+# K8 launches of a V-cycle of HPCG's 4-level multigrid (models/multigrid.py):
+# on each of the 3 finer grids the pre-smoothing's backward sweep, the
+# residual and the post-smoothing's two sweeps; the coarsest's backward sweep
+VCYCLE_SPMVS = 3 * 4 + 1
+
+
+def k8_phase(dev, pcg: dict) -> dict:
+    """Phase 26: K8, the ELL product, against its plain version, the
+    library call and its bound on HPCG's operator at 104³: the SpMV, the
+    strict lower triangle's SpMV and N = 32 columns; N = 256 beside K1
+    (``probes/ell_probe.py::hpcg_rows``, which also holds each product to
+    the plain version and counts the launches of the ELL rung's main
+    path); the launches of a replayed V-cycle; ``pcg``, phase 12's count
+    of a replayed ``solve_cg``."""
+    from basic_sparse_matrix_tpu_torch.probes import ell_probe as probe
+
+    log("ell_spmm (K8) vs plain on the card (CUDA events around graph "
+        "replays; the library call and K1 eager):")
+    rows = {r["case"]: r for r in probe.hpcg_rows(dev)}
+    for r in rows.values():
+        k1 = f", K1 {r['k1_ms']:.4f} ms" if "k1_ms" in r else ""
+        log(f"  {r['case']}: K8 {r['kernel_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.sparse.mm "
+            f"{r['library_ms']:.4f} ms{k1}, bound {r['bound_ms']:.5f} ms; "
+            f"K8 vs plain {r['max_abs_err_of_max']:.2e} of max")
+        if not r["max_abs_err_of_max"] <= ATOL_OF_MAX:
+            raise AssertionError(f"K8 {r['case']}: "
+                                 f"{r['max_abs_err_of_max']:.3e} of max")
+    launches = rows["104³ N = 32"]["main_path_launches"]
+    log(f"  spmm_auto at N = 32 on the 104³ operand: {launches} K8 "
+        f"launch(es)")
+    if launches != 1:
+        raise AssertionError(f"the ELL rung launched K8 {launches} times, "
+                             f"expected 1")
+    vcycle = probe.vcycle_launches(dev)
+    log(f"  a replayed V-cycle (HPCG's 4 levels at 16³): {vcycle} K8 "
+        f"launches (expected {VCYCLE_SPMVS})")
+    if vcycle != VCYCLE_SPMVS:
+        raise AssertionError(f"a V-cycle launched K8 {vcycle} times, "
+                             f"expected {VCYCLE_SPMVS}")
+    spmv = rows["104³ SpMV (width 27)"]
+    keep = ("width", "n", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "k1_ms")
+    return {"name": "ell_spmm", "route": "cuda",
+            "source": "basic_sparse_matrix_tpu_torch/csrc/ell_spmm.cu",
+            "replaces": "none (the JAX package's ELL path is plain jnp)",
+            "launches": launches,
+            "launches_pcg_step": pcg["launches"] / pcg["steps"],
+            "launches_vcycle": vcycle, "ms": spmv["kernel_ms"],
+            "plain_ms": spmv["plain_ms"], "bound_ms": spmv["bound_ms"],
+            "bound_by": "bytes", "library_ms": spmv["library_ms"],
+            "cases": {name: {k: r[k] for k in keep if k in r}
                       for name, r in rows.items()}}
 
 
@@ -4040,6 +4140,12 @@ def main() -> None:
     kernels.append(k7_phase(dev, k7_launches))
     torch.cuda.empty_cache()
     log(f"  [k7_phase: {time.perf_counter() - t0:.1f} s]")
+
+    # ---- 26. K8 at the benchmark's shapes ----------------------------------
+    t0 = time.perf_counter()
+    kernels.append(k8_phase(dev, returned["iterative_path"]))
+    torch.cuda.empty_cache()
+    log(f"  [k8_phase: {time.perf_counter() - t0:.1f} s]")
 
     # ---- 20. parallel/: the distributed direct solvers and BCR -----------
     t0 = time.perf_counter()

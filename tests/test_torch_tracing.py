@@ -167,14 +167,18 @@ def test_spans_sit_on_the_cpu_profilers_timeline():
     first = prof.snapshot()
     assert first.requests() == 2
     assert first.summary()["bsm.spmm.dispatch"]["count"] == 2
-    assert first.counters == {"spmm.rung.ell": 2}
+    # the ELL rung's products ran the plain version (the CPU)
+    assert first.counters == {"spmm.rung.ell": 2, "ell.plain": 2,
+                               "ell.products": 2}
     with profile(activities=[ProfilerActivity.CPU]):
         op.matmul(b)
     second = prof.snapshot()
-    assert second.requests() == 1 and second.counters == {"spmm.rung.ell": 1}
+    assert second.requests() == 1 and second.counters == {
+        "spmm.rung.ell": 1, "ell.plain": 1, "ell.products": 1}
     # ... and it stays the last session's record afterwards
     op.matmul(b)
-    assert prof.snapshot().counters == {"spmm.rung.ell": 1}
+    assert prof.snapshot().counters == {"spmm.rung.ell": 1, "ell.plain": 1,
+                                        "ell.products": 1}
 
 
 def _uniform_rows(seed, n, per):
@@ -210,7 +214,9 @@ def test_rung_counters_agree_with_the_caches(rung):
     cached = ("dense" if a._dense_cache is not None
               else "ell" if a._ell_cache is not None else "gather")
     assert cached == rung
-    assert snap.counters == {f"spmm.rung.{rung}": 2}
+    assert snap.counters == {f"spmm.rung.{rung}": 2,
+                             **({"ell.plain": 2, "ell.products": 2}
+                                if rung == "ell" else {})}
     rows = snap.summary()
     assert rows["bsm.spmm.dispatch"]["count"] == 2
     assert rows[f"bsm.spmm.{rung}"]["count"] == 2
@@ -228,7 +234,10 @@ def test_pcg_host_reads_count_the_eager_loops_reads(tol):
     # the residual's float
     reads = it + (it < 12) + 1
     assert (tol == 0.0) == (it == 12)
-    assert snap.counters == {"pcg.host_reads": reads}
+    # A·p a step through the ELL view's plain version (the CPU)
+    assert setup.ell is not None
+    assert snap.counters == {"pcg.host_reads": reads, "ell.plain": it,
+                             "ell.products": it}
     rows = snap.summary()
     assert rows["bsm.pcg.read"]["count"] == reads
     assert rows["bsm.pcg.start"]["count"] == 1
