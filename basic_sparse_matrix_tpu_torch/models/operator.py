@@ -24,17 +24,18 @@ class SparseOperator:
     """Wraps a CSR with memoised fast-path state.
 
     ``matmul``/``matvec`` reuse the dispatch caches on the CSR instance
-    (``mul_dense``'s ladder, so the BSR and streaming kernels run where it
-    picks them); ``solve`` builds and caches a :class:`DirectSolver`;
+    (``mul_dense``'s ladder, so the BSR, streaming and ELL kernels and the
+    split rung run where it picks them; ``matvec`` takes it for float32
+    on the card only); ``solve`` builds and caches a :class:`DirectSolver`;
     ``solve_cg`` the IC(0)-PCG set-up, unless ``use_multigrid`` gave it
     HPCG's multigrid preconditioner first; ``solve_chebyshev``,
     ``eigen_values`` and ``condition_estimate`` share one Lanczos set-up.
     ``direct_solver`` and ``pcg_setup`` give the prepared solvers (None
     until built), and with them their set-up ``timings``.
 
-    ``matmul``, ``solve`` and ``solve_cg`` are the requests the recorder
-    (``runtime/profiling.py``) roots its spans at: ``bsm.matmul``,
-    ``bsm.solve``, ``bsm.solve_cg``.
+    ``matmul``, ``matvec``, ``solve`` and ``solve_cg`` are the requests the
+    recorder (``runtime/profiling.py``) roots its spans at: ``bsm.matmul``,
+    ``bsm.matvec``, ``bsm.solve``, ``bsm.solve_cg``.
     """
 
     a: CSR
@@ -72,7 +73,10 @@ class SparseOperator:
             return mul_dense(self.a, b)
 
     def matvec(self, x) -> torch.Tensor:
-        return mul_vector(self.a, x)
+        """``A·x`` for a vector ``x`` (``mul_vector``: float32 on the card
+        down ``mul_dense``'s ladder as one column)."""
+        with profiling.span("bsm.matvec"):
+            return mul_vector(self.a, x)
 
     def matmul_sparse(self, other: CSR) -> CSR:
         """Sparse × sparse product (``spgemm``'s dispatch; the planned path

@@ -10,7 +10,9 @@ copy device → host.
 
 The format memos of the JAX package (``_dense_cache``, ``_bsr_cache``,
 ``_ell_cache``) are plain attributes here, joined by ``_bsr_fill``, the
-block fill the BSR dispatch test computed.
+block fill the BSR dispatch test computed, ``_ell_overhead``, the ELL
+padding factor the dispatch reads, and ``_split_cache``, the layout of the
+card's skewed-row rung.
 """
 
 from __future__ import annotations
@@ -88,6 +90,12 @@ class CSR:
     # Block fill bsr_profitable computed for this matrix (host work that
     # grows with nnz, so it is done once).
     _bsr_fill: Optional[float] = dataclasses.field(
+        default=None, init=False, repr=False)
+    # The ELL overhead that ell_overhead computed, and the split layout of
+    # the skewed-row rung (ops/split.py), each made once.
+    _ell_overhead: Optional[float] = dataclasses.field(
+        default=None, init=False, repr=False)
+    _split_cache: object = dataclasses.field(
         default=None, init=False, repr=False)
     # Memoised symbolic plans of ops.elementwise (add/sub) and ops.spgemm,
     # lists of (weakref to the right operand, plan), at most four each.

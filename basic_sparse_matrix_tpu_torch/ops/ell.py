@@ -120,10 +120,13 @@ def _on_k8(ell: ELL, b: torch.Tensor) -> bool:
             and ell.vals.dtype == torch.float32)
 
 
-def _ell_cuda(ell: ELL, b: torch.Tensor) -> torch.Tensor:
+def _ell_cuda(ell: ELL, b: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8 (``csrc/ell_spmm.cu``): ``ell`` times ``b`` ((K,) or (K, N), any
-    strides) as one launch on the current stream, into a new tensor of
-    shape (rows,) or (rows, N). Counts ``ell.products`` and
+    strides) as one launch on the current stream, into ``out`` (contiguous
+    float32 of shape (rows,) or (rows, N), which may be a view of a larger
+    buffer, ``b``'s too where the rows ``b`` holds and those ``out`` covers
+    do not meet) or a new tensor. Counts ``ell.products`` and
     ``ell.launches``."""
     global LAUNCHES
     from ..runtime import cuda_kernels
@@ -140,8 +143,14 @@ def _ell_cuda(ell: ELL, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ell: the operand has {b.shape[0]} rows, the "
                          f"matrix {ell.n_cols} columns")
     n = 1 if b.ndim == 1 else int(b.shape[1])
-    out = torch.empty((ell.n_rows, *b.shape[1:]), dtype=torch.float32,
-                      device=b.device)
+    shape = (ell.n_rows, *b.shape[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=b.device)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or out.device != b.device or not out.is_contiguous()):
+        raise ValueError(f"ell: K8 writes a contiguous float32 {shape} on "
+                         f"{b.device}, got {out.dtype} {tuple(out.shape)} "
+                         f"on {out.device}")
     if out.numel():
         lib = cuda_kernels.load()
         with torch.cuda.device(b.device):
@@ -157,13 +166,20 @@ def _ell_cuda(ell: ELL, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spmm_ell(ell: ELL, b: torch.Tensor) -> torch.Tensor:
+def spmm_ell(ell: ELL, b: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[r] = Σ_k vals[r,k]·B[cols[r,k]]``; padding slots contribute
     ``0 · B[0]``. The result has ``b``'s dtype. K8 where :func:`_on_k8`
-    holds, else :func:`spmm_ell_plain`."""
+    holds, else :func:`spmm_ell_plain` (:func:`spmv_ell_plain` for a 1-D
+    ``b``). With ``out`` (of the result's shape and dtype; on K8 a
+    contiguous view, see :func:`_ell_cuda`) the result is written there
+    and ``out`` returned."""
     if _on_k8(ell, b):
-        return _ell_cuda(ell, b)
-    return spmm_ell_plain(ell, b)
+        return _ell_cuda(ell, b, out)
+    y = spmv_ell_plain(ell, b) if b.ndim == 1 else spmm_ell_plain(ell, b)
+    if out is None:
+        return y
+    return out.copy_(y)
 
 
 def spmm_ell_plain(ell: ELL, b: torch.Tensor) -> torch.Tensor:
@@ -203,11 +219,15 @@ def spmv_ell_plain(ell: ELL, x: torch.Tensor) -> torch.Tensor:
 
 
 def ell_overhead(a: CSR) -> float:
-    """Padding overhead factor: stored slots after padding / true stored."""
-    indptr, _, _ = a.numpy()
-    lens = np.diff(indptr)
-    width = max(int(lens.max()) if a.rows else 0, 1)
-    return a.rows * width / max(a.stored, 1)
+    """Padding overhead factor: stored slots after padding / true stored.
+    Worked out once from ``a``'s row pointer (the host mirror where there
+    is one, else one read of the device's longest row) and memoised on
+    ``a``."""
+    if a._ell_overhead is None:
+        ptr = a._host[0] if a._host is not None else a.indptr
+        longest = int((ptr[1:] - ptr[:-1]).max()) if a.rows else 0
+        a._ell_overhead = a.rows * max(longest, 1) / max(a.stored, 1)
+    return a._ell_overhead
 
 
 def cached_ell(a: CSR) -> ELL:
@@ -225,14 +245,15 @@ def spmm_ell_from_csr(a: CSR, b: torch.Tensor) -> torch.Tensor:
     ``ell_stream="on"``, a float32 RHS on a CUDA device with at least 128
     columns against a float32 matrix of at least 2**18 stored entries goes
     to the streaming kernel (K2; the plan is memoised on the ELL); every
-    other product to :func:`spmm_ell` (K8 on the card in float32)."""
+    other product to :func:`spmm_ell` (K8 on the card in float32). A 1-D
+    ``b`` is one column."""
     ell = cached_ell(a)
     cfg = get_config()
     if (cfg.ell_stream == "on"
             and b.is_cuda
             and b.dtype == torch.float32
             and ell.vals.dtype == torch.float32
-            and b.shape[1] >= 128
+            and b.ndim == 2 and b.shape[1] >= 128
             and a.stored >= (1 << 18)):
         plan = stream_plan_from_ell(ell, int(b.shape[1]))
         if plan is not None:

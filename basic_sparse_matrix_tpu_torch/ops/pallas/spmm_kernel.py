@@ -300,7 +300,7 @@ def bsr_profitable(a: CSR, b: torch.Tensor, *, force: bool = False) -> bool:
     once per matrix, is the set-up lap ``spmm.bsr_fill``."""
     if not b.is_cuda and not force:
         return False
-    n = int(b.shape[-1])
+    n = 1 if b.ndim == 1 else int(b.shape[-1])
     if a.stored == 0 or n < 64:
         return False
     bsr = a._bsr_cache

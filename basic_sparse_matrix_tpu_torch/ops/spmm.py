@@ -2,23 +2,36 @@
 
 Counterpart of ``basic_sparse_matrix_tpu/ops/spmm.py`` (reference
 ``mul_dense``/``mul_vector``, ``src/sparse.rs:426-482``). ``spmm_auto``
-keeps the JAX package's dispatch ladder and thresholds:
+keeps the JAX package's dispatch ladder and thresholds, and adds one rung
+on the card:
 
 1. dense: ``torch.matmul`` on the memoised densified operand, when density
    ≥ ``dense_dispatch_density`` and the dense matrix takes at most
    ``dense_dispatch_max_bytes`` (the JAX package leaves this product to XLA);
 2. BSR: the K1 CUDA kernel (``ops/pallas/spmm_kernel.py``) when
    ``bsr_profitable``;
-3. ELL: gather + per-row reduce, or on the GPU the K2 streaming kernel
-   (``ops/ell.py``, ``ops/pallas/stream_kernel.py``);
-4. ``spmm``: gather + ``index_add_`` segment sum, any shape.
+3. ELL, when the ELL overhead (memoised on the CSR) is at most
+   ``ell_max_overhead``: K8, or the K2 streaming kernel, on the card;
+   gather + per-row reduce elsewhere (``ops/ell.py``,
+   ``ops/pallas/stream_kernel.py``);
+4. split (the card only, float32): above that overhead, each row cut into
+   pieces of at most ``ops/split.py::WIDTH`` entries, run as an ELL on K8,
+   the pieces' sums added by K8 in a fixed tree (``ops/split.py``);
+5. ``spmm``: gather + ``index_add_`` segment sum, any shape.
 
-Dispatch rule for the kernels: the BSR and streaming kernels take float32
-only. A matrix or RHS of another dtype on a CUDA device (the integer-dtype
-cases) takes the plain rungs 1, 3 (gather + reduce) and 4, chosen before
-any launch — never by catching a failed one. On the CPU the kernel rungs
-are off, as they are off the TPU in the JAX package, so the ladder picks
-the same rung as the JAX package on the CPU.
+Dispatch rule for the kernels: the BSR, streaming and ELL kernels (and so
+the split rung) take float32 only. A matrix or RHS of another dtype on a
+CUDA device (the integer-dtype cases) takes the plain rungs 1, 3 (gather +
+reduce) and 5, chosen before any launch — never by catching a failed one.
+On the CPU the kernel rungs are off, as they are off the TPU in the JAX
+package, so the ladder picks the same rung as the JAX package on the CPU.
+
+A 1-D operand is one column (N = 1) everywhere on the ladder.
+``mul_vector`` (and ``SparseOperator.matvec``) sends a float32 vector times
+a float32 matrix on a CUDA device down the ladder, so an SpMV there runs
+K8 on an ELL operator and the split rung on a skewed one; every other
+SpMV, on the CPU or of another dtype, keeps the JAX package's gather +
+segment sum in the vector's dtype (``spmv``).
 
 Result dtypes follow the JAX package: ``spmm``/``spmv`` and the ELL rung
 return the RHS's dtype; the dense rung and the kernels return float32.
@@ -42,6 +55,7 @@ from ..runtime import profiling
 from ..utils.config import get_config, matmul_precision
 from ..utils.errors import IncorrectDimensions, check
 from . import ell as _e
+from . import split as _s
 from .csr import CSR, compute_dtype
 from .pallas import spmm_kernel as _k
 
@@ -118,10 +132,14 @@ def mul_dense(a: CSR, b) -> torch.Tensor:
 
 
 def mul_vector(a: CSR, x) -> torch.Tensor:
-    """Checked SpMV — reference ``mul_vector``."""
+    """Checked SpMV — reference ``mul_vector``. A float32 vector times a
+    float32 matrix on a CUDA device takes the dispatch ladder
+    (``spmm_auto``) as one column; any other ``spmv``, in ``x``'s dtype."""
     x = _as_tensor(x, a)
     check(x.ndim == 1 and a.cols == x.shape[0], IncorrectDimensions,
           f"mul_vector: {a.dims} × {tuple(x.shape)}")
+    if x.is_cuda and x.dtype == a.dtype == torch.float32:
+        return spmm_auto(a, x)
     return spmv(a, x)
 
 
@@ -132,9 +150,9 @@ def spmm_to_csr(a: CSR, b) -> CSR:
 
 
 def _rung(a: CSR, b: torch.Tensor) -> str:
-    """The ladder's rung for ``a`` × ``b``: ``dense``, ``bsr``, ``ell`` (the
-    ELL path, which picks the streaming kernel or the gather + reduce
-    itself) or ``gather``."""
+    """The ladder's rung for ``a`` × ``b`` ((K,) or (K, N)): ``dense``,
+    ``bsr``, ``ell`` (the ELL path, which picks the streaming kernel, K8
+    or the gather + reduce itself), ``split`` or ``gather``."""
     cfg = get_config()
     if (a.get_density() >= cfg.dense_dispatch_density
             and 4 * a.rows * a.cols <= cfg.dense_dispatch_max_bytes):
@@ -145,19 +163,23 @@ def _rung(a: CSR, b: torch.Tensor) -> str:
         return "bsr"
     if a.stored and _e.ell_overhead(a) <= cfg.ell_max_overhead:
         return "ell"
+    if kernels and a.stored:
+        return "split"
     return "gather"
 
 
 def spmm_auto(a: CSR, b: torch.Tensor) -> torch.Tensor:
     """Density-dispatched SpMM (the ladder in the module docstring). A batch
     ``b`` (Bt, K, N) is folded into the columns, (K, Bt·N), multiplied in
-    one pass down the ladder and unfolded to (Bt, M, N).
+    one pass down the ladder and unfolded to (Bt, M, N); a vector ``b``
+    (K,) gives (M,).
 
     The recorder (``runtime/profiling.py``) sees the choice as the span
     ``bsm.spmm.dispatch`` and the counter ``spmm.rung.<rung>`` (``dense``,
-    ``bsr``, ``ell``, ``stream`` or ``gather``), and the product as the
-    span ``bsm.spmm.<rung>``. The memoised dense operand is the set-up lap
-    ``spmm.dense_convert``, as the other rungs' layouts are theirs."""
+    ``bsr``, ``ell``, ``stream``, ``split`` or ``gather``), and the product
+    as the span ``bsm.spmm.<rung>``. The memoised dense operand is the
+    set-up lap ``spmm.dense_convert``, as the other rungs' layouts are
+    theirs (``spmm.split_convert`` the split layout's)."""
     if b.ndim == 3:
         bt, k, n = b.shape
         folded = b.permute(1, 0, 2).reshape(k, bt * n)
@@ -171,8 +193,10 @@ def spmm_auto(a: CSR, b: torch.Tensor) -> torch.Tensor:
     with profiling.span("bsm.spmm." + rung):
         if rung == "bsr":
             return _k.spmm_bsr_from_csr(a, b)
+        if rung == "split":
+            return _s.spmm_split(_s.cached_split(a), b)
         if rung == "gather":
-            return spmm(a, b)
+            return spmm(a, b) if b.ndim == 2 else spmv(a, b)
         if a._dense_cache is None:
             clock = profiling.Laps("spmm", a.device)
             a._dense_cache = a.todense().to(torch.float32)

@@ -319,6 +319,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
     pre-smoothing's backward sweep, the residual and the post-smoothing's
     two sweeps, and the coarsest grid's backward sweep).
 
+27. The split rung (``ops/split.py``; run after phase 26): GAP's PageRank
+    product on the ``kron`` graph of ``portbench/configs/gap-kron-25.json``
+    (Graph500 Kronecker, scale 25, ≈ 1.05B entries) through K8 over the
+    rows' pieces and their sums, at ``split.WIDTH``, beside the plain SpMV
+    (gather + ``index_add_``), ``torch.sparse.mm`` and the bound
+    (``probes/split_probe.py::rows``): bit for bit across two products,
+    within ``SPLIT_ERR`` of the float64 edge-list product row by row, and
+    one ``SparseOperator.matvec`` counted on the split rung with every pass
+    a K8 launch. Its numbers join K8's row under ``cases``.
+
 Every kernel's line also carries ``bound_ms``, the least time the card
 could take: the larger of the bytes the function must move (each input read
 once, each output written once; for data-dependent work what this run's data
@@ -1973,6 +1983,9 @@ def k7_phase(dev, launches: int) -> dict:
                       for name, r in rows.items()}}
 
 
+# Largest row-relative difference of the split rung from the float64
+# edge-list product (float32 sums in a tree of at most WIDTH-long runs).
+SPLIT_ERR = 1e-5
 # K8 launches of a V-cycle of HPCG's 4-level multigrid (models/multigrid.py):
 # on each of the 3 finer grids the pre-smoothing's backward sweep, the
 # residual and the post-smoothing's two sweeps; the coarsest's backward sweep
@@ -2026,6 +2039,71 @@ def k8_phase(dev, pcg: dict) -> dict:
             "bound_by": "bytes", "library_ms": spmv["library_ms"],
             "cases": {name: {k: r[k] for k in keep if k in r}
                       for name, r in rows.items()}}
+
+
+def split_phase(dev, k8: dict, widths=()) -> None:
+    """Phase 27: the split rung (``ops/split.py``) on GAP's ``kron`` graph at
+    scale 25 (``probes/split_probe.py::rows`` at ``split.WIDTH``, and at
+    each further width of ``widths``, printed only): K8 over
+    the pieces and their sums beside the plain SpMV, ``torch.sparse.mm``
+    and the bound; two products bit for bit, each within ``SPLIT_ERR`` of
+    the float64 edge-list product row by row, and one
+    ``SparseOperator.matvec`` on the main path taking the split rung, every
+    pass on K8. The graph, its reference, the row error and the bound come
+    from ``portbench/`` (``kron.py``, ``reference/graph.py``, ``costs.py``),
+    which the probe does not import. Its numbers join K8's row under
+    ``cases``."""
+    from basic_sparse_matrix_tpu_torch import CSR
+    from basic_sparse_matrix_tpu_torch.ops import split as ps
+    from basic_sparse_matrix_tpu_torch.probes import split_probe
+    from portbench import costs, kron, manifest
+    from portbench.reference import graph
+    from portbench.reference.precision import FLOAT64
+
+    config = manifest.data("configs", "gap-kron-25")
+    t0 = time.perf_counter()
+    indptr, indices, values = kron.csr(config, dev)
+    n = indptr.size - 1
+    a = CSR.from_host(indptr, indices, values, (n, n), device=dev)
+    del values
+    torch.cuda.synchronize()
+    stats = kron.stats(indptr, ps.WIDTH)
+    log(f"kron scale {config['scale']}: {stats} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    g = torch.Generator(device=dev).manual_seed(25)
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64) + 0.5
+    x = (u / u.sum()).float()
+    del u
+    ref, scale = graph.apply(indptr, indices, x, FLOAT64, scale=True)
+    del indices
+    bound = 1e3 * costs.bound_s(kron.spmv_cost(indptr),
+                                costs.peaks(torch.cuda.get_device_name(dev)))
+    rows = {r["case"]: r for r in split_probe.rows(
+        a, x, [ps.WIDTH, *widths], lambda y: graph.row_error(y, ref, scale),
+        bound)}
+    del a, x, ref, scale
+    split = rows[f"split w{ps.WIDTH}"]
+    main = rows["main path"]["counters"]
+    log(f"split rung (K8) on kron scale {config['scale']}: "
+        f"{stats['stored']} entries, {split['passes']} passes, "
+        f"{split['slots_per_entry']:.4f} slots an entry; "
+        f"{split['kernel_ms']:.3f} ms, plain spmv "
+        f"{rows['plain spmv']['kernel_ms']:.3f} ms, torch.sparse.mm "
+        f"{rows['torch.sparse.mm']['kernel_ms']:.3f} ms, bound "
+        f"{split['bound_ms']:.3f} ms; row error {split['row_err']:.2e}; "
+        f"main path {main}")
+    if not (split["bit_equal"] and split["row_err"] <= SPLIT_ERR
+            and rows["main path"]["row_err"] <= SPLIT_ERR):
+        raise AssertionError(f"split rung: {split}, {rows['main path']}")
+    if not (main.get("spmm.rung.split") == 1
+            and main.get("ell.launches") == split["passes"]
+            and "ell.plain" not in main):
+        raise AssertionError(f"the main path's matvec counted {main}")
+    keep = ("kernel_ms", "bound_ms", "row_err", "passes", "slots_per_entry")
+    k8["cases"][f"kron scale {config['scale']} split w{ps.WIDTH}"] = {
+        **{k: split[k] for k in keep},
+        "plain_ms": rows["plain spmv"]["kernel_ms"],
+        "library_ms": rows["torch.sparse.mm"]["kernel_ms"]}
 
 
 # ---- 19. the distributed layer (parallel/) on logical shards and NCCL -----
@@ -4146,6 +4224,12 @@ def main() -> None:
     kernels.append(k8_phase(dev, returned["iterative_path"]))
     torch.cuda.empty_cache()
     log(f"  [k8_phase: {time.perf_counter() - t0:.1f} s]")
+
+    # ---- 27. the split rung on GAP's kron graph ---------------------------
+    t0 = time.perf_counter()
+    split_phase(dev, kernels[-1])
+    torch.cuda.empty_cache()
+    log(f"  [split_phase: {time.perf_counter() - t0:.1f} s]")
 
     # ---- 20. parallel/: the distributed direct solvers and BCR -----------
     t0 = time.perf_counter()
