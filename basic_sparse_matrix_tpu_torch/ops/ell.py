@@ -22,8 +22,10 @@ K8 product. Config ``ell_gather_bf16`` (a bf16 gather inside the
 barriered formulation) is accepted and has no effect: the port always
 gathers in the operand's dtype.
 
-``spmm_ell_from_csr`` routes wide-RHS float32 operands on a CUDA device to
-the streaming kernel (``ops/pallas/stream_kernel.py``) first.
+``spmm_ell_from_csr`` sends a wide float32 product on a CUDA device to the
+streaming kernel (``ops/pallas/stream_kernel.py``) where the card's kernel
+choice (``ops/spmm.py::_card_kernel``) takes it; :func:`stream_gate` is
+that kernel's gate.
 """
 
 from __future__ import annotations
@@ -240,21 +242,32 @@ def cached_ell(a: CSR) -> ELL:
     return a._ell_cache
 
 
-def spmm_ell_from_csr(a: CSR, b: torch.Tensor) -> torch.Tensor:
-    """CSR entry point with memoised ELL conversion. With config
+def stream_gate(a: CSR, b: torch.Tensor) -> bool:
+    """Whether K2 may take ``a`` x ``b`` (the JAX package's gate): config
     ``ell_stream="on"``, a float32 RHS on a CUDA device with at least 128
-    columns against a float32 matrix of at least 2**18 stored entries goes
-    to the streaming kernel (K2; the plan is memoised on the ELL); every
-    other product to :func:`spmm_ell` (K8 on the card in float32). A 1-D
-    ``b`` is one column."""
-    ell = cached_ell(a)
-    cfg = get_config()
-    if (cfg.ell_stream == "on"
+    columns against a float32 matrix of at least 2**18 stored entries."""
+    return (get_config().ell_stream == "on"
             and b.is_cuda
             and b.dtype == torch.float32
-            and ell.vals.dtype == torch.float32
+            and a.dtype == torch.float32
             and b.ndim == 2 and b.shape[1] >= 128
-            and a.stored >= (1 << 18)):
+            and a.stored >= (1 << 18))
+
+
+def spmm_ell_from_csr(a: CSR, b: torch.Tensor,
+                      stream: Optional[bool] = None) -> torch.Tensor:
+    """CSR entry point with memoised ELL conversion. With ``stream`` the
+    product goes to the streaming kernel (K2; the plan is memoised on the
+    ELL), else to :func:`spmm_ell` (K8 on the card in float32). ``stream``
+    None asks the card's kernel choice (``ops/spmm.py::_card_kernel``),
+    which takes K2 only where :func:`stream_gate` holds. A 1-D ``b`` is
+    one column."""
+    if stream is None:
+        from .spmm import _card_kernel
+
+        stream = _card_kernel(a, b) == "k2"
+    ell = cached_ell(a)
+    if stream:
         plan = stream_plan_from_ell(ell, int(b.shape[1]))
         if plan is not None:
             profiling.count("spmm.rung.stream")

@@ -9,15 +9,27 @@ on the card:
    ≥ ``dense_dispatch_density`` and the dense matrix takes at most
    ``dense_dispatch_max_bytes`` (the JAX package leaves this product to XLA);
 2. BSR: the K1 CUDA kernel (``ops/pallas/spmm_kernel.py``) when
-   ``bsr_profitable``;
+   ``bsr_profitable`` and the card's kernel choice (below) takes it;
 3. ELL, when the ELL overhead (memoised on the CSR) is at most
-   ``ell_max_overhead``: K8, or the K2 streaming kernel, on the card;
+   ``ell_max_overhead``: K8, or the K2 streaming kernel, on the card, as
+   the kernel choice takes them;
    gather + per-row reduce elsewhere (``ops/ell.py``,
    ``ops/pallas/stream_kernel.py``);
 4. split (the card only, float32): above that overhead, each row cut into
    pieces of at most ``ops/split.py::WIDTH`` entries, run as an ELL on K8,
    the pieces' sums added by K8 in a fixed tree (``ops/split.py``);
 5. ``spmm``: gather + ``index_add_`` segment sum, any shape.
+
+The card's kernel choice (:func:`_card_kernel`): a float32 product of at
+least ``CARD_MIN_COLUMNS`` columns on a CUDA device, which the rungs above
+would send to K1 (BSR), K2 (streaming) or K8 (ELL), takes the one of them
+whose modelled device time on this layout is least (:func:`card_costs`):
+the same rungs' gates decide which are candidates (``bsr_profitable`` for
+K1, the ELL overhead for K8, ``ell_stream`` and K2's size gate for K2), and
+the layout's numbers (block fill at ``pick_tiles``' tile, the ELL overhead,
+rows, columns, entries, N) decide among them. So a stencil's wide product
+leaves K1's padded blocks for K8, and a block-dense operand keeps K1. The
+BSR layout and the stream plan are built only for the kernel chosen.
 
 Dispatch rule for the kernels: the BSR, streaming and ELL kernels (and so
 the split rung) take float32 only. A matrix or RHS of another dtype on a
@@ -46,7 +58,7 @@ batch axis, the rung JAX's ``vmap`` over the values takes.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -58,6 +70,7 @@ from . import ell as _e
 from . import split as _s
 from .csr import CSR, compute_dtype
 from .pallas import spmm_kernel as _k
+from .pallas import stream_kernel as _sk
 
 
 def _as_tensor(x, a: CSR) -> torch.Tensor:
@@ -149,21 +162,148 @@ def spmm_to_csr(a: CSR, b) -> CSR:
     return CSR.from_dense(mul_dense(a, b).cpu().numpy(), device=a.device)
 
 
+# The card's kernel choice (module docstring). Products narrower than this
+# keep the ladder's rungs as they are (K1 opens at 64 columns too).
+CARD_MIN_COLUMNS = 64
+# Modelled device seconds of each kernel's work (card_costs), fitted to the
+# rows of ``probes/ell_probe.py --choice`` on an H100 (PERF.md, section 6):
+K1_SLAB_S = 5.2e-13      # an element of the bk x N slab of X a live block reads
+K1_MAC_S = 3.4e-14       # a multiply-add of a live block (three TF32 passes)
+K8_SLOT_S = 8.9e-13      # an ELL slot's column and value
+K8_ELEMENT_S = 2.5e-13   # an element of X a slot gathers, from the caches
+K2_SWEEP_S = 1.05e-11    # a stored entry's plan slot, in one sweep of a slice
+DRAM_BYTE_S = 2.76e-13   # a byte of X or C moved to or from device memory
+LAUNCH_S = 5.0e-5        # what any product costs beyond its work
+# K2's tile kernel (where the sliced kernel does not apply) took 1.20 to 9.3
+# times K8's time on every probed shape: it is modelled as K8's time times
+# the least of these.
+K2_TILE_OVER_K8 = 1.2
+# K1 covers N in tiles of this many columns.
+K1_TILE_N = 128
+
+
+def card_layout(a: CSR, b: torch.Tensor) -> dict:
+    """The numbers of ``a``'s layout that the card's choice reads: rows,
+    columns, stored entries, N (``b``'s columns, 1 for a vector), the tile
+    (bm, bk) and live blocks of the BSR layout (from its memo, else from
+    ``bsr_profitable``'s fill test, run here where neither exists) and the
+    ELL overhead."""
+    n = 1 if b.ndim == 1 else int(b.shape[-1])
+    bsr = a._bsr_cache
+    if bsr is not None:
+        bm, bk, live = bsr.bm, bsr.bk, bsr.n_live
+    else:
+        if a._bsr_fill is None:
+            _k.bsr_profitable(a, b, force=True)
+        bm, bk = _k.pick_tiles(a.rows, a.cols, a.stored)
+        live = a.stored / (a._bsr_fill * bm * bk) if a._bsr_fill else 0
+    return dict(rows=a.rows, cols=a.cols, stored=a.stored, n=n, bm=bm,
+                bk=bk, live=live, overhead=_e.ell_overhead(a))
+
+
+def _dram_x_bytes(layout: dict, piece: int) -> float:
+    """Bytes of X that gathers of ``piece``-byte pieces of its rows read
+    from device memory: X once where its pieces fit the L2, else one piece
+    for each live block (a block's entries share the rows they read),
+    less the share the L2 holds, and never less than X once."""
+    whole = layout["cols"] * piece
+    if whole <= _sk.L2_SLICE_BUDGET_BYTES:
+        return whole
+    missed = layout["live"] * piece * (1 - _sk.L2_SLICE_BUDGET_BYTES / whole)
+    return max(whole, missed)
+
+
+def card_costs(layout: dict) -> Dict[str, float]:
+    """Modelled device seconds of one product on ``layout`` (see
+    :func:`card_layout`) by K1, K2 and K8, each ``LAUNCH_S`` plus its work
+    plus writing C:
+
+    * K1: every live block reads a bk x N slab of X and makes bm x bk x N
+      multiply-adds in three TF32 passes, N rounded up to ``K1_TILE_N``;
+    * K8: every ELL slot (overhead x stored) reads its column and value and
+      gathers a row of X, N x 4 bytes;
+    * K2: where the sliced kernel applies, every stored entry's plan slot is
+      swept once for each slice of ``SLICE_WIDTH`` columns, and each sweep
+      gathers that slice's pieces of X; elsewhere the tile kernel, at
+      ``K2_TILE_OVER_K8`` times K8.
+
+    The pieces of X that miss the L2 (:func:`_dram_x_bytes`) and C are
+    charged at ``DRAM_BYTE_S`` a byte."""
+    n, stored = layout["n"], layout["stored"]
+    bm, bk, live = layout["bm"], layout["bk"], layout["live"]
+    slots = layout["overhead"] * stored
+    fixed = LAUNCH_S + 4 * layout["rows"] * n * DRAM_BYTE_S
+    n1 = -(-n // K1_TILE_N) * K1_TILE_N
+    k1 = fixed + live * n1 * (bk * K1_SLAB_S + bm * bk * K1_MAC_S)
+    k8 = fixed + slots * (K8_SLOT_S + n * K8_ELEMENT_S) \
+        + _dram_x_bytes(layout, 4 * n) * DRAM_BYTE_S
+    tile_k = get_config().cuda_stream_tile_k
+    n_kt = -(-layout["cols"] // tile_k) if tile_k else 1
+    width = _sk.slice_width(layout["cols"], n, n_kt)
+    if width and (slots / max(layout["rows"], 1)) * _sk.LONG_ROW_ROWS \
+            <= layout["rows"]:
+        sweeps = -(-n // width)
+        k2 = fixed + sweeps * (stored * K2_SWEEP_S
+                               + _dram_x_bytes(layout, 4 * width)
+                               * DRAM_BYTE_S)
+    else:
+        k2 = k8 * K2_TILE_OVER_K8
+    return {"k1": k1, "k2": k2, "k8": k8}
+
+
+def card_pick(layout: dict, candidates) -> str:
+    """The candidate (of ``"k1"``, ``"k2"``, ``"k8"``) whose
+    :func:`card_costs` on ``layout`` is least."""
+    costs = card_costs(layout)
+    return min(candidates, key=costs.__getitem__)
+
+
+def _card_kernel(a: CSR, b: torch.Tensor) -> Optional[str]:
+    """The card's kernel for ``a`` x ``b``: ``"k1"``, ``"k2"`` or ``"k8"``,
+    or None where the choice is not reached (off the card, another dtype
+    than float32, fewer than ``CARD_MIN_COLUMNS`` columns, no entries, or
+    neither the BSR nor the ELL rung open). The candidates are those whose
+    rung's gate holds; of them the least :func:`card_costs`. Counts
+    ``spmm.card.decisions`` at every choice made, and
+    ``spmm.card.bsr_declined`` where ``bsr_profitable`` held and another
+    kernel was chosen."""
+    n = 1 if b.ndim == 1 else int(b.shape[-1])
+    if not (b.is_cuda and a.dtype == torch.float32
+            and b.dtype == torch.float32 and n >= CARD_MIN_COLUMNS
+            and a.stored):
+        return None
+    cfg = get_config()
+    bsr = _k.bsr_profitable(a, b)
+    ell = _e.ell_overhead(a) <= cfg.ell_max_overhead
+    if not (bsr or ell):
+        return None
+    candidates = (["k1"] if bsr else []) + (["k8"] if ell else [])
+    if ell and _e.stream_gate(a, b):
+        candidates.append("k2")
+    pick = card_pick(card_layout(a, b), candidates)
+    profiling.count("spmm.card.decisions")
+    if bsr and pick != "k1":
+        profiling.count("spmm.card.bsr_declined")
+    return pick
+
+
 def _rung(a: CSR, b: torch.Tensor) -> str:
     """The ladder's rung for ``a`` × ``b`` ((K,) or (K, N)): ``dense``,
-    ``bsr``, ``ell`` (the ELL path, which picks the streaming kernel, K8
-    or the gather + reduce itself), ``split`` or ``gather``."""
+    ``bsr``, ``stream`` (K2, where the card's choice takes it), ``ell``
+    (the ELL path: K8 or the gather + reduce), ``split`` or ``gather``."""
     cfg = get_config()
     if (a.get_density() >= cfg.dense_dispatch_density
             and 4 * a.rows * a.cols <= cfg.dense_dispatch_max_bytes):
         return "dense"
-    kernels = (b.is_cuda and a.dtype == torch.float32
-               and b.dtype == torch.float32)
-    if kernels and _k.bsr_profitable(a, b):
-        return "bsr"
+    # Where the choice is not reached, bsr_profitable does not hold either
+    # (it needs the card, 64 columns and entries): the BSR rung is closed.
+    card = _card_kernel(a, b)
+    if card is not None:
+        return {"k1": "bsr", "k2": "stream", "k8": "ell"}[card]
     if a.stored and _e.ell_overhead(a) <= cfg.ell_max_overhead:
         return "ell"
-    if kernels and a.stored:
+    if (b.is_cuda and a.dtype == torch.float32 and b.dtype == torch.float32
+            and a.stored):
         return "split"
     return "gather"
 
@@ -187,8 +327,8 @@ def spmm_auto(a: CSR, b: torch.Tensor) -> torch.Tensor:
             .contiguous()
     with profiling.span("bsm.spmm.dispatch"):
         rung = _rung(a, b)
-    if rung == "ell":
-        return _e.spmm_ell_from_csr(a, b)
+    if rung in ("ell", "stream"):
+        return _e.spmm_ell_from_csr(a, b, stream=rung == "stream")
     profiling.count("spmm.rung." + rung)
     with profiling.span("bsm.spmm." + rung):
         if rung == "bsr":

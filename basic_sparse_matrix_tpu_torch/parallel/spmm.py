@@ -21,9 +21,10 @@ rank.
 
 The local product: on the CPU the plain gather + ``index_add_`` (the JAX
 package's gather + ``segment_sum``, ``ops/spmm.py::spmm``); on the card the
-port's ``spmm_auto`` on the shard's CSR, so a shard takes the rung one
-device would give it (at 1M × 1M with 32 entries a row, every shard and
-every ring block the streaming rung, K2). The local SpMV of the solvers is
+port's ``spmm_auto`` on the shard's CSR, so a shard takes the rung and
+the kernel one device would give it (at 1M × 1M with 32 entries a row and
+512 columns, every shard and every ring block the streaming kernel, K2, by
+the card's kernel choice; a block whose X fits the L2, K8). The local SpMV of the solvers is
 the ELL gather + row reduce where the padding overhead permits (as the
 port's single-device PCG and Lanczos), else the gather/segment sum: no
 atomics, so a rank's product is the same bits on every run.

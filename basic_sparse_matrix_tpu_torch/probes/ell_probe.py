@@ -31,6 +31,7 @@ counts them). ``--threads`` also times K8 at other block sizes
 
 Usage (a machine with a CUDA GPU and nvcc; ≈ 30 s of host set-up):
     python -m basic_sparse_matrix_tpu_torch.probes.ell_probe [--threads]
+        [--choice]
 Every line printed is one JSON object.
 """
 
@@ -154,6 +155,152 @@ def hpcg_rows(device, threads: bool = False) -> list:
     return rows
 
 
+CHOICE_WIDTHS = (64, 128, 256, 512)
+# Device bytes a probed layout (blocks or plan) may take.
+LAYOUT_BUDGET_BYTES = 6 << 30
+
+
+def block_operand(device, seed: int = 11):
+    """``chip_smoke.py``'s K1 operand: 32,768² with 1 % of its 64 × 256
+    blocks dense and random-normal (655 blocks, ≈ 10.7M entries)."""
+    from ..ops.csr import CSR
+
+    n, bm, bk = 32768, 64, 256
+    nrb, ncb = n // bm, n // bk
+    rng = np.random.default_rng(seed)
+    picked = np.sort(rng.choice(nrb * ncb, (nrb * ncb) // 100,
+                                replace=False))
+    br, bc = picked // ncb, picked % ncb
+    per_brow = np.bincount(br, minlength=nrb)
+    lens = np.repeat(per_brow * bk, bm)
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    starts = np.concatenate([[0], np.cumsum(per_brow)])
+    cols = [np.concatenate([np.arange(c * bk, (c + 1) * bk)
+                            for c in bc[starts[r]: starts[r + 1]]]
+                           or [np.zeros(0, np.int64)])
+            for r in range(nrb)]
+    indices = np.concatenate([np.tile(c, bm) for c in cols])
+    values = rng.standard_normal(indices.size, dtype=np.float32)
+    return CSR.from_host(indptr, indices, values, (n, n), device=device)
+
+
+def random_operand(device, rows: int, cols: int, per_row: int,
+                   seed: int = 12):
+    """``rows`` × ``cols`` with ``per_row`` uniformly random columns a row
+    (sorted; a repeated column is a second entry, as the kernels sum it),
+    random-normal values: ``chip_smoke.py``'s K2 operand at 1M² and 32."""
+    from ..ops.csr import CSR
+
+    rng = np.random.default_rng(seed)
+    indices = np.sort(rng.integers(0, cols, (rows, per_row)), axis=1)
+    indptr = np.arange(rows + 1, dtype=np.int64) * per_row
+    values = rng.standard_normal(rows * per_row, dtype=np.float32)
+    return CSR.from_host(indptr, indices.ravel(), values, (rows, cols),
+                         device=device)
+
+
+def corner(a, rows: int, cols: int):
+    """The leading ``rows`` × ``cols`` block of ``a``, as a row shard or a
+    ring step's column block of ``parallel/`` multiplies it."""
+    from ..ops.csr import CSR
+
+    indptr, indices, values = a.numpy()
+    keep = indices[: indptr[rows]] < cols
+    counts = np.add.reduceat(keep, indptr[:rows]) if rows else keep
+    counts[np.diff(indptr[: rows + 1]) == 0] = 0
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    return CSR.from_host(ptr, indices[: indptr[rows]][keep],
+                         values[: indptr[rows]][keep], (rows, cols),
+                         device=a.device)
+
+
+def _timed(fn):
+    """``eager_ms(fn)``, or None where the card runs out of memory."""
+    try:
+        return eager_ms(fn)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+
+
+def choice_row(case, a, n: int, gen) -> dict:
+    """K1, K2 and K8 on ``a`` at N = ``n`` beside the choice's model and
+    pick (module docstring)."""
+    from ..ops.pallas import spmm_kernel as k1
+    from ..ops.pallas import stream_kernel as k2
+    from ..ops.spmm import _card_kernel, card_costs, card_layout
+
+    b = torch.randn(a.cols, n, generator=gen, device=gen.device)
+    layout = card_layout(a, b)
+    with profiling.recording():
+        pick = _card_kernel(a, b)
+    ell = pe.cached_ell(a)
+    ref = pe.spmm_ell(ell, b)
+    times, errs = {"k8": _timed(lambda: pe.spmm_ell(ell, b))}, {}
+    blocks = layout["live"] * layout["bm"] * layout["bk"] * 4
+    if blocks <= LAYOUT_BUDGET_BYTES or a._bsr_cache is not None:
+        k1.cached_bsr(a)
+        times["k1"] = _timed(lambda: k1.spmm_bsr_from_csr(a, b))
+        errs["k1"] = float((k1.spmm_bsr_from_csr(a, b) - ref).abs().max()
+                           / ref.abs().max())
+    plan = k2.stream_plan_from_ell(ell, n)
+    if plan is not None:
+        times["k2"] = _timed(lambda: k2.spmm_stream(plan, b))
+        errs["k2"] = float((k2.spmm_stream(plan, b) - ref).abs().max()
+                           / ref.abs().max())
+        _, longest = k2.cell_row_pointers(plan) \
+            if k2.slice_width(a.cols, n, plan.n_kt) else (None, 0)
+        layout["k2_kernel"] = k2.pick_stream_kernel(
+            plan.rows, a.cols, n, plan.n_kt, longest)[0]
+    measured = {k: v for k, v in times.items() if v is not None}
+    row = {"metric": "spmm_choice", "case": case, **layout,
+           "fill": a._bsr_fill, "ms": times,
+           "model_ms": {k: v * 1e3 for k, v in
+                        card_costs(layout).items()},
+           "pick": pick, "fastest": min(measured, key=measured.get),
+           "bound_ms": bound_ms(a, n), "max_rel_err_vs_k8": errs,
+           "card_counters": profiling.snapshot().counters}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def choice_rows(device) -> list:
+    """The ``--choice`` rows (module docstring)."""
+    gen = torch.Generator(device=device).manual_seed(23)
+    smoke_k2 = lambda: random_operand(device, 1 << 20, 1 << 20, 32)
+    test_k2 = lambda: random_operand(device, 131072, 131072, 40)
+    operands = [
+        ("104³ HPCG", lambda: hpcg27(104, device), CHOICE_WIDTHS),
+        ("chip_smoke K1 operand (32,768², 64 × 256 blocks, 1 %)",
+         lambda: block_operand(device), CHOICE_WIDTHS),
+        ("chip_smoke K2 operand (1M², 32 random a row)", smoke_k2,
+         CHOICE_WIDTHS),
+        ("its row shard at 4 ranks (262,144 × 1M)",
+         lambda: corner(smoke_k2(), 1 << 18, 1 << 20), (512,)),
+        ("its ring block at 4 ranks (262,144²)",
+         lambda: corner(smoke_k2(), 1 << 18, 1 << 18), (512,)),
+        ("its 2-D ring block at 2 × 2 (524,288²)",
+         lambda: corner(smoke_k2(), 1 << 19, 1 << 19), (256,)),
+        ("card test operand (20,000², 16 a row)",
+         lambda: random_operand(device, 20000, 20000, 16), (128,)),
+        ("card test operand (131,072², 40 a row)", test_k2, (256,)),
+        ("its row shard at 4 ranks (32,768 × 131,072)",
+         lambda: corner(test_k2(), 32768, 131072), (256,)),
+        ("its ring block at 4 ranks (32,768²)",
+         lambda: corner(test_k2(), 32768, 32768), (256,)),
+        ("its 2-D ring block at 2 × 2 (65,536²)",
+         lambda: corner(test_k2(), 65536, 65536), (128,)),
+    ]
+    rows = []
+    for case, make, widths in operands:
+        a = make()
+        for n in widths:
+            rows.append(choice_row(case, a, n, gen))
+        del a
+        torch.cuda.empty_cache()
+    return rows
+
+
 def vcycle_launches(device, k: int = 16) -> int:
     """K8 launches of one replayed V-cycle of HPCG's 4-level multigrid
     (``models/multigrid.py``) on a k³ grid (the first call captures)."""
@@ -177,6 +324,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--threads", action="store_true",
                    help="also time K8 at each block size of THREADS")
+    p.add_argument("--choice", action="store_true",
+                   help="time K1, K2 and K8 beside the card's choice")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the K8 probe needs a CUDA device")
@@ -184,7 +333,10 @@ def main(argv=None) -> None:
     cuda_kernels.load()
     print(json.dumps({"device": torch.cuda.get_device_name(device),
                       "threads": pe.THREADS}), flush=True)
-    hpcg_rows(device, args.threads)
+    if args.choice:
+        choice_rows(device)
+    else:
+        hpcg_rows(device, args.threads)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ The dispatch thresholds (``dense_dispatch_density``,
 ``dense_dispatch_max_bytes``, ``bsr_min_fill``, ``ell_max_overhead``,
 ``ell_stream``) keep the JAX package's values so that the port's
 ``spmm_auto`` ladder picks the same rung as the reference for the same
-matrix. They were tuned for another device and are unmeasured on the H100.
+matrix. They were tuned for another device. On the card they open the
+candidates of a float32 product of 64 or more columns, and the card's
+kernel choice (``ops/spmm.py::_card_kernel``, its constants measured on the
+H100) picks among K1, K2 and K8 by each one's modelled device time.
 
 Matmul precision: ``matmul_precision="highest"`` means float32 products in
 full float32. PyTorch may run float32 matmuls in TF32 on the GPU when

@@ -34,6 +34,7 @@ from basic_sparse_matrix_tpu_torch.ops.pallas import panel_addback as k5
 from basic_sparse_matrix_tpu_torch.ops.pallas import runs_read as k3
 from basic_sparse_matrix_tpu_torch.ops.pallas import spmm_kernel as k1
 from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
+from basic_sparse_matrix_tpu_torch.ops import ell as k8
 from basic_sparse_matrix_tpu_torch.utils import config as cfgmod
 
 pytestmark = pytest.mark.cuda
@@ -316,16 +317,24 @@ def test_mul_dense_reaches_each_kernel(cuda):
         d[r * bm:(r + 1) * bm, c * bk:(c + 1) * bk] = rng.standard_normal(
             (bm, bk))
     a_bsr = CSR.from_dense(d, device=cuda)
-    rows = 20000
-    a_st = CSR.from_coo_arrays(
-        (rows, rows), np.repeat(np.arange(rows), 16),
-        rng.integers(0, rows, rows * 16),
-        rng.standard_normal(rows * 16).astype(np.float32), device=cuda)
+    # Random columns: the card's kernel choice takes K2 where X (131,072 ×
+    # 256) is beyond the L2, K8 where it (20,000 × 128) fits
+    # (probes/ell_probe.py --choice).
+    operands = []
+    for rows, cols, per, n in ((32768, 131072, 40, 256),
+                               (20000, 20000, 16, 128)):
+        operands.append((CSR.from_coo_arrays(
+            (rows, cols), np.repeat(np.arange(rows), per),
+            rng.integers(0, cols, rows * per),
+            rng.standard_normal(rows * per).astype(np.float32),
+            device=cuda), n))
+    (a_st, n_st), (a_ell, n_ell) = operands
     old = cfgmod.get_config()
     cfgmod.set_config(dataclasses.replace(old, dense_dispatch_max_bytes=1))
     try:
-        for a, kernel in ((a_bsr, k1), (a_st, k2)):
-            b = torch.randn((a.cols, 128), device=cuda)
+        for a, kernel, n in ((a_bsr, k1, 128), (a_st, k2, n_st),
+                             (a_ell, k8, n_ell)):
+            b = torch.randn((a.cols, n), device=cuda)
             before = kernel.LAUNCHES
             out = mul_dense(a, b)
             torch.cuda.synchronize()

@@ -1,12 +1,15 @@
 """The distributed SpMM strategies on the card: 4 logical shards
 (``LocalComm``; 2 × 2 for the 2-D ring) on CUDA tensors against the
-single-device ``mul_dense``, with the streaming kernel (K2) launched once
-per rank and ring step.
+single-device ``mul_dense``, with one kernel launched per rank and ring
+step: the one the card's kernel choice (``ops/spmm.py::_card_kernel``)
+takes for that local product.
 
 The operand, 131,072² with 40 random columns a row (≈ 5.2M stored) × 256
 columns, gives every shard and every ring block at least 2**18 stored
-entries, so each local product takes ``spmm_auto``'s streaming rung as at
-the full 1M-row size. Tolerance: float32 summed in another order,
+entries, so each local product may take the streaming kernel (K2) as at the
+full 1M-row size: a row shard does (its X, 131,072 × 256, is beyond the
+L2), a ring step's 32,768-column block and the 2-D ring's 128-column strips
+take K8 (``probes/ell_probe.py --choice``). Tolerance: float32 summed in another order,
 ``rtol=1e-4``, ``atol=1e-4·max|ref|``. Without a card every test skips; on
 a GPU machine: ``python -m pytest tests/test_torch_parallel_cuda.py -q
 --noconftest``.
@@ -43,8 +46,10 @@ def operand():
     ("spmm_sharded", 4), ("spmm_allgather", 4), ("spmm_ring", 16),
     ("spmm_ring_2d", 8)])
 def test_strategy_on_the_card(operand, strategy, launches):
+    from basic_sparse_matrix_tpu_torch.ops import ell as k8
     from basic_sparse_matrix_tpu_torch.ops.pallas import stream_kernel as k2
     from basic_sparse_matrix_tpu_torch.parallel import sharded as sh
+    from basic_sparse_matrix_tpu_torch.runtime import profiling as prof
     from basic_sparse_matrix_tpu_torch.parallel import spmm as ps
     from basic_sparse_matrix_tpu_torch.parallel import spmm2d
     from basic_sparse_matrix_tpu_torch.parallel.mesh import make_mesh, row_mesh
@@ -57,11 +62,17 @@ def test_strategy_on_the_card(operand, strategy, launches):
         mesh, fn = row_mesh(4, comm="local", device="cuda"), \
             getattr(ps, strategy)
     sa = sh.put_sharded(sh.shard_csr(a, mesh.shape["rows"]), mesh)
-    before = k2.LAUNCHES
-    out = sh.unshard_rows(fn(sa, b, mesh), a.rows)
-    torch.cuda.synchronize()
+    before = (k2.LAUNCHES, k8.LAUNCHES)
+    with prof.recording():
+        out = sh.unshard_rows(fn(sa, b, mesh), a.rows)
+        torch.cuda.synchronize()
+    counters = prof.snapshot().counters
+    got = (k2.LAUNCHES - before[0], k8.LAUNCHES - before[1])
     assert out.is_cuda
-    assert k2.LAUNCHES - before == launches
+    # one launch a local product, of the kernel the choice took for it
+    assert sum(got) == launches == counters.get("spmm.card.decisions")
+    assert got == (counters.get("spmm.rung.stream", 0),
+                   counters.get("ell.launches", 0))
     torch.testing.assert_close(out, ref, rtol=1e-4,
                                atol=1e-4 * float(ref.abs().max()))
 
